@@ -1,0 +1,53 @@
+"""The port stands alone: importing ``wildgs_slam_tpu_torch`` and every one of
+its submodules loads no ``jax``, no ``flax`` and nothing of the JAX package,
+and no port source file or ``chip_smoke.py`` names one in an import."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "wildgs_slam_tpu_torch"
+FORBIDDEN = ("jax", "flax", "wildgs_slam_tpu")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import wildgs_slam_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules
+             if any(k == f or k.startswith(f + ".") for f in %r))
+print("LOADED", bad)
+""" % (FORBIDDEN,)
+
+
+def _forbidden(name: str) -> bool:
+    # exact name or dotted prefix: wildgs_slam_tpu_torch itself starts with
+    # the string "wildgs_slam_tpu" but is not the JAX package
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_sources_name_no_jax_module():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        bad = [m for m in _imports(path) if _forbidden(m)]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+        assert "importlib.import_module(\"jax" not in path.read_text()

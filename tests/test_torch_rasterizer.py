@@ -1,0 +1,283 @@
+"""The port's rasterizer against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages. Where
+the JAX side reaches the Pallas kernels it runs them in interpret mode, as
+tests/test_pallas_composite.py does.
+
+Tolerances, and why:
+- SE3, SH, projection: float32 elementwise math in both, rtol 1e-5 /
+  atol 1e-5 (op order differs only in library reductions).
+- Binning: ids, counts and overflow must be exactly equal.
+- Composite forward: atol 1e-5 colour and alpha, 1e-4 depth (depth is not
+  normalized, values ~3), the tolerances of test_pallas_composite.py.
+- Gradients: max-relative error (max |a - b| / max |b|) below 1e-5, as in
+  test_pallas_composite.py; 1e-4 against the JAX XLA path, whose prefix
+  products go through exp(cumsum(log)) rather than products.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wildgs_slam_tpu.ops import lie as jlie
+from wildgs_slam_tpu.ops import sh as jsh
+from wildgs_slam_tpu.ops import rasterizer as jr
+from wildgs_slam_tpu.ops.rasterizer import binning as jbin
+from wildgs_slam_tpu.ops.rasterizer import pallas_composite as jpc
+from wildgs_slam_tpu.ops.rasterizer import projection as jproj
+from wildgs_slam_tpu_torch.ops import lie as tlie
+from wildgs_slam_tpu_torch.ops import sh as tsh
+from wildgs_slam_tpu_torch.ops import rasterizer as tr
+from wildgs_slam_tpu_torch.ops.rasterizer import binning as tbin
+from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as tcc
+
+torch.set_num_threads(1)
+H, W = 48, 64
+
+
+def T(x, dtype=torch.float32):
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def max_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """The scene of test_pallas_composite.py, drawn with numpy."""
+    rng = np.random.RandomState(0)
+    N = 200
+    means = np.concatenate([rng.uniform(-1, 1, (N, 2)),
+                            2.0 + 2.0 * rng.uniform(size=(N, 1))], -1)
+    scales = 0.02 + 0.08 * rng.uniform(size=(N, 3))
+    rots = rng.normal(size=(N, 4))
+    rots /= np.linalg.norm(rots, axis=-1, keepdims=True)
+    opac = 0.3 + 0.6 * rng.uniform(size=N)
+    sh = rng.uniform(size=(N, 1, 3))
+    w2c = np.array([0.02, -0.01, 0.03, 0.01, -0.02, 0.015, 1.0])
+    w2c[3:] /= np.linalg.norm(w2c[3:])
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(means=f32(means), scales=f32(scales), rots=f32(rots),
+                opac=f32(opac), sh=f32(sh), w2c=f32(w2c),
+                intr=f32([55.0, 55.0, W / 2, H / 2]))
+
+
+def test_se3_ops():
+    rng = np.random.RandomState(1)
+    xi = (0.3 * rng.normal(size=(16, 6))).astype(np.float32)
+    xi[0] = 0.0
+    xi[1, 3:] = 1e-5
+    pts = rng.normal(size=(16, 3)).astype(np.float32)
+    g_j = jlie.se3_exp(jnp.asarray(xi))
+    g_t = tlie.se3_exp(T(xi))
+    np.testing.assert_allclose(g_t, g_j, rtol=1e-5, atol=1e-6)
+    g2 = np.asarray(jlie.se3_exp(jnp.asarray(xi[::-1].copy())))
+    for fj, ft in ((jlie.se3_inv, tlie.se3_inv),):
+        np.testing.assert_allclose(ft(T(g_j)), fj(g_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tlie.se3_mul(T(g_j), T(g2)),
+                               jlie.se3_mul(g_j, jnp.asarray(g2)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tlie.se3_act(T(g_j), T(pts)),
+                               jlie.se3_act(g_j, jnp.asarray(pts)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tlie.se3_retr(T(g2), T(xi)),
+                               jlie.se3_retr(jnp.asarray(g2), jnp.asarray(xi)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tlie.quat_to_matrix(T(g_j)[:, 3:]),
+                               jlie.quat_to_matrix(g_j[:, 3:]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(tlie.se3_identity((2,), device="cpu"),
+                                  jlie.se3_identity((2,)))
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_eval_sh(deg):
+    rng = np.random.RandomState(deg)
+    sh = rng.normal(size=(50, 16, 3)).astype(np.float32)
+    dirs = rng.normal(size=(50, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tsh.eval_sh(deg, T(sh), T(dirs)),
+        jsh.eval_sh(deg, jnp.asarray(sh), jnp.asarray(dirs)),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_projection_and_pose_gradient(scene):
+    s = scene
+    args = [s["means"], s["scales"], s["rots"], s["opac"], s["sh"],
+            s["w2c"], s["intr"]]
+    pj = jproj.project_gaussians(*map(jnp.asarray, args), (H, W),
+                                 pose_delta=jnp.zeros(6))
+    pt = tr.project_gaussians(*map(T, args), (H, W),
+                              pose_delta=torch.zeros(6))
+    for name in ("mean2d", "depth", "conic", "color", "opacity"):
+        np.testing.assert_allclose(getattr(pt, name).detach(),
+                                   getattr(pj, name), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    np.testing.assert_array_equal(pt.radius, pj.radius)
+    np.testing.assert_array_equal(pt.valid, pj.valid)
+
+    rng = np.random.RandomState(2)
+    wm = rng.normal(size=(200, 2)).astype(np.float32)
+    wc = rng.normal(size=(200, 3)).astype(np.float32)
+
+    def jloss(m, pd):
+        p = jproj.project_gaussians(m, *map(jnp.asarray, args[1:]), (H, W),
+                                    pose_delta=pd)
+        return jnp.sum(p.mean2d * wm) + jnp.sum(p.conic * wc)
+    gj = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(s["means"]),
+                                         jnp.zeros(6))
+    m = T(s["means"]).requires_grad_(True)
+    pd = torch.zeros(6, requires_grad=True)
+    p = tr.project_gaussians(m, *map(T, args[1:]), (H, W), pose_delta=pd)
+    ((p.mean2d * T(wm)).sum() + (p.conic * T(wc)).sum()).backward()
+    assert max_rel(m.grad, gj[0]) < 1e-5
+    assert max_rel(pd.grad, gj[1]) < 1e-5
+
+
+@pytest.mark.parametrize("capacity,kw", [(256, 4), (24, 4), (64, 2)])
+def test_binning_exact(scene, capacity, kw):
+    s = scene
+    pj = jproj.project_gaussians(
+        *map(jnp.asarray, [s["means"], 2.5 * s["scales"], s["rots"],
+                           s["opac"], s["sh"], s["w2c"], s["intr"]]), (H, W))
+    bj = jbin.bin_gaussians(pj.mean2d, pj.radius, pj.depth, pj.valid, (H, W),
+                            capacity=capacity, method="sort", kw=kw,
+                            with_rev=False)
+    bt = tbin.bin_gaussians(T(pj.mean2d), T(pj.radius, torch.int32),
+                            T(pj.depth), T(pj.valid, torch.bool), (H, W),
+                            capacity=capacity, kw=kw)
+    np.testing.assert_array_equal(bt.ids, bj.ids)
+    np.testing.assert_array_equal(bt.counts, bj.counts)
+    assert int(bt.overflow) == int(bj.overflow)
+    if capacity == 24:
+        assert int(bj.overflow) > 0
+
+
+def _table(scene, capacity=256):
+    """A packed per-tile table from the scene, built with the JAX package's
+    projection and binning."""
+    s = scene
+    pj = jproj.project_gaussians(*map(jnp.asarray, [
+        s["means"], s["scales"], s["rots"], s["opac"], s["sh"], s["w2c"],
+        s["intr"]]), (H, W))
+    b = jbin.bin_gaussians(pj.mean2d, pj.radius, pj.depth, pj.valid, (H, W),
+                           capacity=capacity, method="sort", with_rev=False)
+    zc = jnp.zeros_like(pj.depth)
+    attrs = jnp.stack([pj.mean2d[:, 0], pj.mean2d[:, 1], pj.conic[:, 0],
+                       pj.conic[:, 1], pj.conic[:, 2], pj.color[:, 0],
+                       pj.color[:, 1], pj.color[:, 2], pj.opacity, pj.depth]
+                      + [zc] * 6, axis=1)
+    table = np.asarray(attrs[jnp.maximum(b.ids, 0)])
+    return np.asarray(b.counts, np.int32), table
+
+
+@pytest.mark.parametrize("ck", [64, 8])
+def test_composite_kernels_plain_vs_pallas(scene, ck):
+    counts, table = _table(scene)
+    tw = jbin.num_tiles((H, W))[1]
+    bg = np.array([0.1, 0.5, 0.9], np.float32)
+    n_t = table.shape[0]
+    rng = np.random.RandomState(3)
+    gc = rng.normal(size=(n_t, 256, 3)).astype(np.float32)
+    gd, ga, gt = (rng.normal(size=(n_t, 256)).astype(np.float32)
+                  for _ in range(3))
+
+    def jfun(attrs, bgv):
+        out = jpc.composite_tiles_pallas(tw, ck, True, jnp.asarray(counts),
+                                         attrs, bgv)
+        return out
+    jout, vjp = jax.vjp(jfun, jnp.asarray(table), jnp.asarray(bg))
+    jgrad = vjp(jpc.PallasTiles(jnp.asarray(gc), jnp.asarray(gd),
+                                jnp.asarray(ga), jnp.asarray(gt)))
+
+    tid = torch.arange(n_t, dtype=torch.int32)
+    color, depth, alpha, tfin, tentry = tcc.composite_fwd_plain(
+        T(counts, torch.int32), tid, T(table), T(bg), tw, ck)
+    np.testing.assert_allclose(color, jout.color, atol=1e-5)
+    np.testing.assert_allclose(depth, jout.depth, atol=1e-4)
+    np.testing.assert_allclose(alpha, jout.alpha, atol=1e-5)
+    np.testing.assert_allclose(tfin, jout.tfin, atol=1e-5)
+
+    dattrs = tcc.composite_bwd_plain(T(counts, torch.int32), tid, T(table),
+                                     T(bg), tentry, tfin, T(gc), T(gd), T(ga),
+                                     T(gt), tw, ck)
+    assert max_rel(dattrs, jgrad[0]) < 1e-5
+    assert np.all(np.asarray(dattrs)[..., 10:] == 0)
+
+    # the autograd wiring (plain versions on the CPU) gives the same
+    a = T(table).requires_grad_(True)
+    bgt = T(bg).requires_grad_(True)
+    outs = tcc.composite_tiles(T(counts, torch.int32), a, bgt, tw, ck)
+    sum((o * T(g)).sum() for o, g in zip(outs, (gc, gd, ga, gt))).backward()
+    assert max_rel(a.grad, jgrad[0]) < 1e-5
+    assert max_rel(bgt.grad, jgrad[1]) < 1e-5
+    assert tcc.composite_fwd.launches == 0  # no kernel on a CPU tensor
+
+
+def _loss_and_grads(renderer, scene, torch_side, **kw):
+    s = scene
+    rng = np.random.RandomState(4)
+    wc = rng.uniform(size=(H, W, 3)).astype(np.float32)
+    if torch_side:
+        m = T(s["means"]).requires_grad_(True)
+        sc = T(s["scales"]).requires_grad_(True)
+        o = T(s["opac"]).requires_grad_(True)
+        pd = torch.zeros(6, requires_grad=True)
+        out = renderer(m, sc, T(s["rots"]), o, T(s["sh"]), T(s["w2c"]),
+                       T(s["intr"]), (H, W), pose_delta=pd, **kw)
+        loss = ((out.color * T(wc)).sum() + 0.01 * (out.depth ** 2).sum()
+                + 0.1 * (out.alpha ** 2).sum())
+        loss.backward()
+        return out, [x.grad for x in (m, sc, o, pd)]
+
+    def f(m, sc, o, pd):
+        out = renderer(m, sc, jnp.asarray(s["rots"]), o, jnp.asarray(s["sh"]),
+                       jnp.asarray(s["w2c"]), jnp.asarray(s["intr"]), (H, W),
+                       pose_delta=pd, **kw)
+        return (jnp.sum(out.color * wc) + 0.01 * jnp.sum(out.depth ** 2)
+                + 0.1 * jnp.sum(out.alpha ** 2)), out
+    (_, out), g = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(
+        jnp.asarray(s["means"]), jnp.asarray(s["scales"]),
+        jnp.asarray(s["opac"]), jnp.zeros(6))
+    return out, g
+
+
+def _compare(ot, gt_, oj, gj, grad_tol):
+    np.testing.assert_allclose(ot.color.detach(), oj.color, atol=1e-5)
+    np.testing.assert_allclose(ot.depth.detach(), oj.depth, atol=1e-4)
+    np.testing.assert_allclose(ot.alpha.detach(), oj.alpha, atol=1e-5)
+    np.testing.assert_array_equal(ot.radii, oj.radii)
+    assert int(ot.overflow) == int(oj.overflow)
+    for a, b in zip(gt_, gj):
+        assert max_rel(a, b) < grad_tol, max_rel(a, b)
+
+
+def test_render_matches_jax_render(scene):
+    """The plain all-tiles path against the JAX XLA path, n_touched too."""
+    kw = dict(capacity=256, chunk=64, bin_kw=4)
+    ot, gt_ = _loss_and_grads(tr.render, scene, True, **kw)
+    oj, gj = _loss_and_grads(jr.render, scene, False, bin_method="sort_norev",
+                             **kw)
+    _compare(ot, gt_, oj, gj, 1e-4)
+    np.testing.assert_array_equal(ot.n_touched, oj.n_touched)
+
+
+def test_render_fused_matches_render_pallas(scene):
+    """The kernel path (plain versions on the CPU) against render_pallas in
+    interpret mode, forward and every gradient including the pose's."""
+    kw = dict(capacity=256, chunk=64, bin_kw=4)
+    ot, gt_ = _loss_and_grads(tr.render_fused, scene, True, **kw)
+    oj, gj = _loss_and_grads(jr.render_pallas, scene, False,
+                             bin_method="sort_norev", interpret=True, **kw)
+    _compare(ot, gt_, oj, gj, 1e-5)
+
+
+def test_render_reference_matches_jax(scene):
+    ot, gt_ = _loss_and_grads(tr.render_reference, scene, True)
+    oj, gj = _loss_and_grads(jr.render_reference, scene, False)
+    _compare(ot, gt_, oj, gj, 1e-5)
+    np.testing.assert_array_equal(ot.n_touched, oj.n_touched)
