@@ -4,21 +4,34 @@
 
 Phases, each printing its own lines:
   1. the card (name and power limit as nvidia-smi gives them), torch and
-     CUDA versions; TF32 off for matmuls and cuDNN convolutions;
+     CUDA versions (the global TF32 flags stay at PyTorch's defaults: the
+     port pins its own convolutions to float32);
   2. build of the CUDA kernels from csrc/ (nvcc, one per source, in
      parallel), with what ptxas reports;
   3. each kernel against its plain PyTorch version at mapping shapes
-     (T=768 tiles, K=512 slots, chunk 64), on a table made by the port's
-     own projection and binning of a seeded scene;
-  4. each kernel's time (CUDA events) beside its bound and its plain
-     version's time;
+     (T=768 tiles, K=512 slots, chunk 64, N=262,144 Gaussians), on a table
+     made by the port's own projection and binning of a seeded scene: K1/K2
+     (composite), K3 (table gather, exact) and K4 (its scatter-add, with
+     random cotangents in every slot);
+  4. each kernel's time (CUDA events, the median of several rounds)
+     beside its bound, its plain version's time and, where one exists, one
+     library call's time;
   5. the mapper's keyframe path through Mapper's entry points
      (initialize_mapper, then on_keyframe) at the full widths of
      configs/Dynamic/TUM_RGBD/tum_dynamic.yaml on a seeded synthetic scene,
      with the kernels' launch counts, which must equal the mapping steps run,
      and a torch.profiler summary;
-  6. one JSON line describing every kernel;
-  7. the card again, then the last line {"ok": true, "device": {...}}.
+  6. the tracking frontend at the same widths, frame by frame through
+     MotionFilter.track and Frontend.__call__: an oracle run (ground-truth
+     reprojection targets through the real BA) that hands its keyframes to
+     Mapper.initialize_mapper at warmup, then Frontend.initialize_second_stage,
+     and must keep the keyframe ATE under 1 cm, raise the keyframes' mean
+     PSNR by more than 10 dB over the seeded map's to above 35 dB and launch
+     K1-K4 once per mapping step; then a
+     run with the seeded random DROID weights to 8
+     frontend updates, with its times, memory and a torch.profiler summary;
+  7. one JSON line describing every kernel;
+  8. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -27,6 +40,7 @@ from any working directory.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -39,14 +53,21 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from wildgs_slam_tpu_torch import kernels  # noqa: E402
 from wildgs_slam_tpu_torch.config import load_config  # noqa: E402
+from wildgs_slam_tpu_torch.models import droid_net  # noqa: E402
 from wildgs_slam_tpu_torch.ops import lie  # noqa: E402
 from wildgs_slam_tpu_torch.ops import rasterizer as tr  # noqa: E402
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as cc  # noqa
+from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as tg  # noqa
 from wildgs_slam_tpu_torch.slam import gaussian_map as gm  # noqa: E402
 from wildgs_slam_tpu_torch.slam import keyframe_store as kstore  # noqa: E402
+from wildgs_slam_tpu_torch.slam import system  # noqa: E402
+from wildgs_slam_tpu_torch.slam.frontend import Frontend  # noqa: E402
 from wildgs_slam_tpu_torch.slam.mapper import Mapper  # noqa: E402
+from wildgs_slam_tpu_torch.slam.motion_filter import MotionFilter  # noqa
 from wildgs_slam_tpu_torch.slam.state import SlamState  # noqa: E402
+from wildgs_slam_tpu_torch.utils.eval_traj import ape_statistics  # noqa
 from wildgs_slam_tpu_torch.utils.profiling import TIMER  # noqa: E402
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
@@ -63,13 +84,25 @@ N_INIT_KEYFRAMES = 5     # keyframes at initialize_mapper
 N_ONLINE_KEYFRAMES = 3   # on_keyframe calls after it
 TOL = dict(color=1e-5, depth=1e-4, alpha=1e-5, tfin=1e-5, tentry=1e-5)
 BWD_MAX_REL = 1e-5
+SCATTER_MAX_REL = 1e-5   # K4: the atomics sum in another order
+KERNELS = {   # wrapper name -> the wrapper, whose .launches counts
+    "composite_fwd": cc.composite_fwd, "composite_bwd": cc.composite_bwd,
+    "table_gather": tg.table_gather, "table_scatter_add": tg.table_scatter_add}
+TRACK_STEP = 0.25        # the tracking scene's motion per frame, in units of
+                         # the mapping scene's motion per keyframe
+TRACK_UPDATES = 8        # frontend updates each tracking run must reach
+ATE_MAX = 0.01           # m, the bar of tests/test_integrated_ate.py
+PSNR_GAIN_MIN = 10.0     # dB, the handoff's mean keyframe PSNR must rise by
+PSNR_MIN = 35.0          # more than this, to above this
+ORACLE_FRAMES = 40       # frames each tracking run may take at most
+NETWORK_FRAMES = 400
 
 
-def card_line() -> str:
+def card_line(query="name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(
+        ).splitlines()[0]
 
 
 def t32(a, dev):
@@ -105,26 +138,128 @@ def mapping_table(dev, n=262144, h=384, w=512, capacity=512, seed=0):
                          proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
                          proj.color[:, 0], proj.color[:, 1], proj.color[:, 2],
                          proj.opacity, proj.depth] + [z] * 6, 1)
-    return (bins.counts, tr.gather_table(attrs, bins.ids).contiguous(),
-            int(bins.overflow), -(-w // 16))
+    ids = bins.ids.to(torch.int32).contiguous()
+    return (bins.counts, tg.table_gather_plain(attrs, ids).contiguous(),
+            int(bins.overflow), -(-w // 16), attrs.contiguous(), ids)
 
 
-def time_ms(fn, reps, warmup=3):
+def time_rounds(fn, reps, warmup=3, rounds=1):
+    """ms per call in each of `rounds` rounds of `reps` calls, timed with
+    CUDA events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
+    per_round = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        per_round.append(a.elapsed_time(b) / reps)
+    return per_round
+
+
+def time_ms(fn, reps, warmup=3, rounds=1):
+    """ms per call: the median of time_rounds."""
+    return float(np.median(time_rounds(fn, reps, warmup, rounds)))
+
+
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), t_ops, t_bytes
+
+
+def table_kernel_rows(attrs, ids, dev):
+    """K3/K4 against their plain versions, timed beside their bounds, their
+    plain versions and the library calls the port used before them."""
+    N = attrs.shape[0]
+    T, K = ids.shape
+    live = ids >= 0
+    g = torch.Generator(device=dev).manual_seed(2)
+    gt = torch.randn(T, K, 16, device=dev, generator=g)   # every slot
+    k_t = tg.table_gather(attrs, ids)
+    p_t = tg.table_gather_plain(attrs, ids)
+    gather_err = float((k_t - p_t).abs().max())
+    if not bool(torch.equal(k_t, p_t)):
+        raise AssertionError(f"K3 differs from its plain version: max-abs "
+                             f"{gather_err}")
+    k_s = tg.table_scatter_add(gt, ids, N)
+    p_s = tg.table_scatter_add_plain(gt, ids, N)
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    scat_abs = float((k_s - p_s).abs().max())
+    scat_rel = scat_abs / float(p_s.abs().max())
+    print(f"K3 table_gather vs plain: equal (max-abs {gather_err}); K4 "
+          f"table_scatter_add vs plain (random cotangents in all {T * K} "
+          f"slots, {int(live.sum())} live): max-abs {scat_abs:.3e} max-rel "
+          f"{scat_rel:.3e}")
+    if not scat_rel < SCATTER_MAX_REL:
+        raise AssertionError(f"K4 max-rel {scat_rel} >= {SCATTER_MAX_REL}")
+
+    safe = torch.clamp(ids, min=0).reshape(-1).long()
+    gflat = gt.reshape(T * K, 16)
+
+    def lib_gather():
+        return attrs.index_select(0, safe)
+
+    def lib_scatter():
+        return torch.zeros(N, 16, device=dev).index_add_(0, safe, gflat)
+    n_rows = int(torch.unique(safe).numel())
+    n_live = int(live.sum())
+    f4 = 4
+    # K3 reads every slot's row (row 0 for an empty one), K4 only the live
+    # slots' cotangents: it skips an empty slot before reading its row
+    gather_bytes = n_rows * 16 * f4 + T * K * f4 + T * K * 16 * f4
+    scatter_bytes = n_live * 16 * f4 + T * K * f4 + N * 16 * f4
+    print(f"K3 work: {n_rows} distinct rows read, {T * K} slots written; "
+          f"K4 work: {n_live} live cotangent rows read, {N} rows written "
+          f"once; bound = bytes at {BYTES_PER_S / 1e12:.2f} TB/s; K4's "
+          f"library call (index_add_ on the clamped ids) adds every empty "
+          f"slot's cotangent into row 0, the same function only where those "
+          f"are zero, as on the mapping path")
+    rows = []
+    for name, fn, plain, lib, nbytes, err in (
+            ("table_gather", lambda: tg.table_gather(attrs, ids),
+             lambda: tg.table_gather_plain(attrs, ids), lib_gather,
+             gather_bytes, gather_err),
+            ("table_scatter_add", lambda: tg.table_scatter_add(gt, ids, N),
+             lambda: tg.table_scatter_add_plain(gt, ids, N), lib_scatter,
+             scatter_bytes, scat_abs)):
+        per_round = time_rounds(fn, 50, rounds=9)
+        ms = float(np.median(per_round))
+        plain_ms = time_ms(plain, 20, rounds=5)
+        lib_ms = time_ms(lib, 50, rounds=9)
+        b, by, _, t_bytes = bound(0, nbytes)
+        print(f"{name}: {ms:.4f} ms, median of 9 rounds of 50 (rounds "
+              f"{min(per_round):.4f}-{max(per_round):.4f}; plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms); bound {b:.4f} "
+              f"ms by {by}: {nbytes / 1e6:.2f} MB; {b / ms * 100:.1f}% of "
+              f"bound; SM clock, max SM clock now: "
+              f"{card_line('clocks.sm,clocks.max.sm')}")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="wildgs_slam_tpu_torch/csrc/table_gather.cu",
+            replaces=("scripts/microbench_gather.py:75" if name ==
+                      "table_gather" else "scripts/microbench_gather.py:102"),
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=lib_ms))
+    return rows
 
 
 def kernel_phase(dev):
-    counts, table, overflow, tw = mapping_table(dev)
+    counts, table, overflow, tw, attrs, ids = mapping_table(dev)
     T, K, _ = table.shape
     ck = 64
     n_chunks = K // ck
@@ -175,7 +310,7 @@ def kernel_phase(dev):
           f"TFLOP/s, bytes of live table rows, tables and outputs read or "
           f"written once at {BYTES_PER_S / 1e12:.2f} TB/s")
 
-    rows = []
+    rows = table_kernel_rows(attrs, ids, dev)
     for name, fn, plain, ops, nbytes, err, src, line in (
             ("composite_fwd",
              lambda: cc.composite_fwd(counts, tid, table, bg, tw, ck),
@@ -186,22 +321,20 @@ def kernel_phase(dev):
              lambda: cc.composite_bwd_plain(*bargs),
              BWD_OPS_PER_SLOT_PIXEL * slot_pixels, bwd_bytes, bwd_abs,
              "composite_bwd.cu", 182)):
-        ms = time_ms(fn, 50)
+        ms = time_ms(fn, 50, rounds=5)
         plain_ms = time_ms(plain, 3, warmup=1)
-        t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
+        b, by, t_ops, t_bytes = bound(ops, nbytes)
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms); bound "
-              f"{bound:.4f} ms by {by}: {ops / 1e9:.3f} G fp32 ops -> "
+              f"{b:.4f} ms by {by}: {ops / 1e9:.3f} G fp32 ops -> "
               f"{t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; "
-              f"{bound / ms * 100:.1f}% of bound")
+              f"{b / ms * 100:.1f}% of bound")
         rows.append(dict(
             name=name, route="cuda",
             source=f"wildgs_slam_tpu_torch/csrc/{src}",
             replaces=f"wildgs_slam_tpu/ops/rasterizer/pallas_composite.py:"
                      f"{line}",
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None))
+            bound_ms=b, bound_by=by, library_ms=None))
     return rows
 
 
@@ -236,10 +369,11 @@ def small_render_check(dev):
 # phase 5: the mapper's keyframe path
 # ---------------------------------------------------------------------------
 
-def room_scene(cfg, n_kf, seed=0):
+def room_scene(cfg, n_kf, seed=0, step=1.0):
     """A textured box room seen by a camera moving through it: per keyframe
     an image, an exact metric depth and a world->camera pose, plus random
-    DINO features; all from numpy with a seed."""
+    DINO features; all from numpy with a seed. `step` scales the motion
+    between consecutive frames."""
     cam = cfg["cam"]
     H, W = cam["H_out"], cam["W_out"]
     sx = W / (cam["W"] - 2 * cam["W_edge"])
@@ -254,8 +388,9 @@ def room_scene(cfg, n_kf, seed=0):
     half = np.array([3.0, 2.0, 5.0])
     frames = []
     for i in range(n_kf):
-        xi = np.array([0.08 * i, 0.02 * np.sin(i), 0.04 * i,
-                       0.02 * np.cos(i), 0.12 * i, 0.0], np.float32)
+        u = step * i
+        xi = np.array([0.08 * u, 0.02 * np.sin(u), 0.04 * u,
+                       0.02 * np.cos(u), 0.12 * u, 0.0], np.float32)
         w2c = lie.se3_exp(torch.as_tensor(xi)).numpy()
         c2w = lie.se3_inv(torch.as_tensor(w2c)).numpy()
         R = lie.quat_to_matrix(torch.as_tensor(c2w[3:])).numpy()
@@ -279,10 +414,31 @@ def room_scene(cfg, n_kf, seed=0):
     return (H, W), intr, frames
 
 
+def device_summary(prof):
+    """From a torch.profiler trace: the device's busy time (the union of its
+    operations' intervals, so that overlapping operations count once), the
+    sum of the operations' own times, their count, and {name: [us, n]}."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            s = by_name.setdefault(e.name, [0.0, 0])
+            s[0] += e.time_range.elapsed_us()
+            s[1] += 1
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(us for us, _ in by_name.values())
+    return busy, total, len(spans), by_name
+
+
 def profile_steps(mapper, n_steps):
     """torch.profiler over n_steps mapping iterations: wall and device time
     per step, device-busy share, kernel count and the top kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     pool = np.array(mapper.current_window)
@@ -295,19 +451,11 @@ def profile_steps(mapper, n_steps):
         mapper._opt_steps(n_steps, pool, probs, 20, False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, n_kernels, by_name = 0.0, 0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            dev_us += us
-            n_kernels += 1
-            s = by_name.setdefault(e.name, [0.0, 0])
-            s[0] += us
-            s[1] += 1
-    busy = dev_us / 1e6 / wall
+    busy_us, dev_us, n_kernels, by_name = device_summary(prof)
     print(f"profile: {n_steps} steps, wall {wall / n_steps * 1e3:.2f} "
           f"ms/step, device {dev_us / 1e3 / n_steps:.2f} ms/step, busy "
-          f"{busy * 100:.1f}%, {n_kernels / n_steps:.0f} device ops/step")
+          f"{busy_us / 1e6 / wall * 100:.1f}%, {n_kernels / n_steps:.0f} "
+          f"device ops/step")
     for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :12]:
         print(f"  {us / 1e3 / n_steps:8.3f} ms/step  x{cnt // n_steps:<4d} "
@@ -315,13 +463,13 @@ def profile_steps(mapper, n_steps):
 
 
 @torch.no_grad()
-def keyframe_psnr(mapper, frames):
+def keyframe_psnr(mapper, frames, render_fn=tr.render_fused):
     """PSNR of each keyframe's render (exposure applied) against its
     image."""
     p = mapper.gaussians.params
     out = []
     for v, (_, _, img, _) in enumerate(frames):
-        r = tr.render_fused(
+        r = render_fn(
             p.xyz, gm.get_scaling(p), gm.get_rotation_xyzw(p),
             gm.get_opacity(p), gm.get_sh(p), mapper.vstore.w2c[v],
             mapper.intrinsics_full, mapper.image_size,
@@ -388,8 +536,7 @@ def slice_phase(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     TIMER.reset()
-    cc.composite_fwd.launches = 0
-    cc.composite_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     mapper.initialize_mapper(n_init - 1)
     torch.cuda.synchronize()
@@ -401,8 +548,7 @@ def slice_phase(dev):
         mapper.on_keyframe(v, v)
     torch.cuda.synchronize()
     t_online = time.perf_counter() - t1
-    launches = {"composite_fwd": cc.composite_fwd.launches,
-                "composite_bwd": cc.composite_bwd.launches}
+    launches = read_launches()
     steps = len(mapper.step_losses)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -421,7 +567,7 @@ def slice_phase(dev):
           f"{ls[-1]:.4f}")
     print("slice: launches", json.dumps(launches))
     print("phases:\n" + TIMER.report())
-    if launches["composite_fwd"] != steps or launches["composite_bwd"] != steps:
+    if any(n != steps for n in launches.values()):
         raise AssertionError(f"kernel launches {launches} != {steps} steps")
     p = mapper.gaussians.params
     if not (np.all(np.isfinite(ls)) and all(
@@ -439,20 +585,259 @@ def slice_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tracking frontend, handing its keyframes to the mapper
+# ---------------------------------------------------------------------------
+
+def profile_window(fn, label):
+    """torch.profiler over fn(): wall and device time, device-busy share and
+    the top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, dev_us, n_ops, by_name = device_summary(prof)
+    print(f"{label} profile: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms ({busy_us / 1e6 / wall * 100:.1f}%; the "
+          f"operations' own times sum to {dev_us / 1e3:.1f} ms), {n_ops} "
+          f"device ops")
+    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :12]:
+        print(f"  {us / 1e3:8.3f} ms  x{cnt:<5d} {name[:90]}")
+
+
+def run_tracking(cfg, intr, frames, model, dev, oracle):
+    """Feed frames through MotionFilter.track and Frontend.__call__ as the
+    system's frame loop does, handing the warmup keyframes to
+    Mapper.initialize_mapper (oracle run only) before
+    Frontend.initialize_second_stage; stop once TRACK_UPDATES frontend
+    updates have run. Returns the run's record."""
+    t = cfg["tracking"]
+    H, W = frames[0][1].shape
+    state = SlamState.create(cfg, H, W, intr, buffer=t["buffer"], device=dev)
+    mapper = Mapper(state, cfg, rng_seed=0, device=dev)
+    train_frac = cfg["mapping"]["uncertainty_params"]["train_frac_fix"]
+    frontend = Frontend(
+        state, model, cfg, uncertainty_update_fn=lambda: (
+            system.uncertainty_update(state, mapper.uncer_mlp, train_frac)))
+    cur = [0]
+    mf = MotionFilter(
+        state, model, thresh=1e9 if oracle else t["motion_filter"]["thresh"],
+        force_keyframe_every_n_frames=(
+            1 if oracle else t["force_keyframe_every_n_frames"]),
+        depth_fn=lambda im: frames[cur[0]][1],
+        feat_fn=lambda im: frames[cur[0]][3])
+    graph = frontend.graph
+    if oracle:
+        sh, sw = kstore.slice_hw(H, W)
+        poses_gt = torch.as_tensor(np.stack([f[0] for f in frames]),
+                                   device=dev)
+        disps_gt = torch.as_tensor(np.stack([1.0 / f[1][sh, sw]
+                                             for f in frames]), device=dev)
+
+        def gt_injection(store, counter):
+            ts = store.timestamp.long().clamp(0, len(frames) - 1)
+            return poses_gt[ts], disps_gt[ts]
+        graph.gt_injection = gt_injection
+
+    upd = {"calls": 0, "iters": 0, "s": 0.0}
+    update_n = graph.update_n
+
+    def timed_update_n(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update_n(*a, **k)
+        torch.cuda.synchronize()
+        upd["s"] += time.perf_counter() - t0
+        upd["calls"] += 1
+        upd["iters"] += out[0] if out else 0
+        return out
+    graph.update_n = timed_update_n
+
+    rec = dict(mapper=mapper, state=state, frontend=frontend)
+    frame_s, last_kf = [], [0]
+
+    def step(i):
+        """One frame of the system's loop; its time excludes the mapper."""
+        cur[0] = i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frontend(mf.track(float(i), frames[i][2]))
+        kf = state.counter - 1
+        t_map = 0.0
+        if (kf != last_kf[0] and frontend.is_initialized
+                and state.counter == frontend.warmup):
+            if oracle:
+                kf_frames = [frames[int(state.timestamps[v])]
+                             for v in range(kf + 1)]
+                opt = mapper.initialize_map_opt
+
+                def fit_before_opt():
+                    # the keyframes are seeded: the map's fit before any
+                    # step, rendered with the plain composite (no kernel
+                    # launches inside the counted handoff)
+                    rec["psnr_seeded"] = keyframe_psnr(mapper, kf_frames,
+                                                       tr.render)
+                    opt()
+                mapper.initialize_map_opt = fit_before_opt
+                t1 = time.perf_counter()
+                mapper.initialize_mapper(kf)
+                torch.cuda.synchronize()
+                t_map = time.perf_counter() - t1
+                rec.update(map_s=t_map, map_steps=len(mapper.step_losses),
+                           psnr_init=keyframe_psnr(mapper, kf_frames,
+                                                   tr.render))
+            frontend.initialize_second_stage()
+        last_kf[0] = kf
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0 - t_map)
+
+    n_frames = 0
+    reset_launches()
+    while n_frames < len(frames) and frontend.n_updates < TRACK_UPDATES:
+        step(n_frames)
+        n_frames += 1
+    rec["launches"] = read_launches()
+    if frontend.n_updates < TRACK_UPDATES:
+        raise AssertionError(f"only {frontend.n_updates} frontend updates in "
+                             f"{n_frames} frames")
+    rec.update(frames=n_frames, frame_s=frame_s, upd=upd, step=step)
+    return rec
+
+
+def tracking_report(rec, label):
+    state, fe = rec["state"], rec["frontend"]
+    g = fe.graph
+    upd = rec["upd"]
+    n = state.counter
+    p = state.store.poses[:n]
+    d = state.store.disps[:n]
+    deg = np.bincount(np.concatenate([g.ii, g.ii_inac]).astype(np.int64))
+    print(f"{label}: {rec['frames']} frames -> {n} keyframes, "
+          f"{fe.n_updates} frontend updates; {g.E} edges "
+          f"({len(g.ii_inac)} inactive), largest source-frame degree "
+          f"{int(deg.max())}; {np.mean(rec['frame_s']) * 1e3:.1f} ms per "
+          f"frame (max {np.max(rec['frame_s']) * 1e3:.1f}), "
+          f"{upd['s'] / max(upd['iters'], 1) * 1e3:.2f} ms per update_n "
+          f"iteration ({upd['iters']} iterations in {upd['calls']} calls)")
+    if not (bool(torch.isfinite(p).all()) and bool(torch.isfinite(d).all())):
+        raise AssertionError(f"{label}: non-finite poses or disparities")
+    return n
+
+
+def tracking_phase(dev):
+    """Phase 6 at the full widths of tum_dynamic.yaml."""
+    cfg = load_config(CONFIG)
+    t = cfg["tracking"]
+    (H, W), intr, frames = room_scene(cfg, ORACLE_FRAMES, seed=3,
+                                      step=TRACK_STEP)
+    model = droid_net.init_droid_net(torch.Generator().manual_seed(0),
+                                     device=dev)
+    reduced = {
+        "tracking": (f"buffer {t['buffer']}, warmup {t['warmup']}, window "
+                     f"{t['frontend']['window']}, max_factors "
+                     f"{t['frontend']['max_factors']} (not cut)"),
+        "scene": (f"synthetic textured box room, motion per frame "
+                  f"{TRACK_STEP} of the mapping scene's; metric depth prior = "
+                  f"exact depth; DINO features random normal (numpy seed 3)"),
+        "DROID weights": "flax-style init from torch seed 0 (no droid.pth)",
+        "oracle run": ("motion filter thresh 3.0 -> 1e9 and "
+                       "force_keyframe_every_n_frames 9 -> 1 (every frame a "
+                       "keyframe, as tests/test_integrated_ate.py); update "
+                       "operator -> ground-truth targets (gt_injection)"),
+        "mapper": ("initialize_mapper at the warmup handoff only (its "
+                   "configured iterations); no on_keyframe, backend, loop "
+                   "closure, online BA or evaluation"),
+        "frames": (f"until {TRACK_UPDATES} frontend updates (at most "
+                   f"{ORACLE_FRAMES} oracle, {NETWORK_FRAMES} network)"),
+    }
+    print("tracking reduced:", json.dumps(reduced))
+
+    # --- oracle run ---
+    rec = run_tracking(cfg, intr, frames, model, dev, oracle=True)
+    n = tracking_report(rec, "tracking oracle")
+    state = rec["state"]
+    ts = state.store.timestamp[:n].long().cpu().numpy()
+    est = lie.se3_inv(state.store.poses[:n]).cpu().numpy()[:, :3]
+    gt = lie.se3_inv(torch.as_tensor(np.stack(
+        [frames[k][0] for k in ts]))).numpy()[:, :3]
+    ate = ape_statistics(est.astype(np.float64), gt.astype(np.float64))
+    ls = np.asarray(rec["mapper"].step_losses)
+    steps = rec["map_steps"]
+    before, after = np.mean(rec["psnr_seeded"]), np.mean(rec["psnr_init"])
+    print(f"tracking oracle: keyframe ATE rmse {ate['rmse'] * 100:.4f} cm "
+          f"(max {ate['max'] * 100:.4f} cm, scale {ate['scale']:.5f}, "
+          f"{ate['n']} keyframes); mapper init {steps} steps in "
+          f"{rec['map_s']:.2f} s; launches in the run "
+          f"{json.dumps(rec['launches'])}")
+    seg_means = [round(float(ls[a:a + 150].mean()), 4)
+                 for a in range(0, len(ls), 150)]
+    print(f"tracking oracle: mapper init loss, mean of each 150 steps: "
+          f"{json.dumps(seg_means)}")
+    print(f"tracking oracle: keyframe PSNR [dB], mean {before:.2f} seeded -> "
+          f"{after:.2f} after init; per keyframe "
+          f"{json.dumps([round(x, 2) for x in rec['psnr_init']])}")
+    if not ate["rmse"] < ATE_MAX:
+        raise AssertionError(f"oracle keyframe ATE {ate['rmse']} m >= "
+                             f"{ATE_MAX} m")
+    # the total loss is no measure of fit to compare across steps: its
+    # uncertainty terms (log sigma, DINO regularisation) move with the MLP,
+    # and the opacity reset at iteration 500 spikes it; the photometric
+    # error of every keyframe's render is
+    if not (np.all(np.isfinite(ls)) and after - before > PSNR_GAIN_MIN
+            and after > PSNR_MIN):
+        raise AssertionError(
+            f"the mapper's initial optimization did not fit the keyframes: "
+            f"mean PSNR {before:.2f} -> {after:.2f} dB (must rise by more "
+            f"than {PSNR_GAIN_MIN} dB, to above {PSNR_MIN} dB)")
+    # the frontend launches none of K1-K4; the handoff one of each per step
+    if any(v != steps for v in rec["launches"].values()):
+        raise AssertionError(f"tracking run launches {rec['launches']} != "
+                             f"{steps} mapping steps")
+    launches = rec["launches"]
+    del rec, state
+    gc.collect()
+
+    # --- network run ---
+    _, _, frames_net = room_scene(cfg, NETWORK_FRAMES, seed=4,
+                                  step=TRACK_STEP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run_tracking(cfg, intr, frames_net, model, dev, oracle=False)
+    tracking_report(rec, "tracking network")
+    print(f"tracking network: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    fe = rec["frontend"]
+    i0 = rec["frames"]
+
+    def more_frames():
+        k = i0
+        n0 = fe.n_updates
+        while fe.n_updates == n0 and k < len(frames_net):
+            rec["step"](k)
+            k += 1
+    profile_window(more_frames, "tracking network (frames to the next "
+                   "frontend update)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    log = cc.build_kernels()
+    log = kernels.build_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for src, info in log.items():
         print(f"  {src}: {info['seconds']:.2f} s\n    "
@@ -461,8 +846,12 @@ def main():
     rows = kernel_phase(dev)
     small_render_check(dev)
     launches = slice_phase(dev)
+    track_launches = tracking_phase(dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {"mapping": launches[row["name"]],
+                                   "tracking":
+                                   track_launches[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,10 @@ structures into the port's. Numpy in, torch out; nothing here imports JAX.
 - ``uncertainty_params_from_jax``: the flax tree of ``UncertaintyMLP``
   (``{"params": {"fc1": {"kernel": (in, out), "bias": (out,)}, ...}}``, or
   the inner dict) -> the torch module's ``state_dict``;
+- ``droid_params_from_jax``: the flax tree of ``init_droid_params`` /
+  ``load_droid_checkpoint`` (``{"fnet": ..., "cnet": ..., "update": ...}``,
+  conv kernels HWIO) -> the ``DroidNet`` ``state_dict`` (upstream
+  ``droid.pth`` names, OIHW);
 - ``gaussian_map_from_numpy``: a ``GaussianMap`` as a dict
   ``{"params": {...}, "aux": {...}, "mu": {...}, "nu": {...}, "count": n}``
   of numpy arrays (the JAX ``adam.mu``/``adam.nu``/``adam.count``);
@@ -43,6 +47,43 @@ def uncertainty_params_from_jax(tree: Mapping) -> dict:
     return sd
 
 
+def droid_params_from_jax(tree: Mapping) -> dict:
+    """Flax DROID params -> DroidNet state_dict."""
+    sd = {}
+
+    def conv(key, p):
+        sd[f"{key}.weight"] = torch.as_tensor(
+            np.array(p["kernel"], np.float32).transpose(3, 2, 0, 1).copy())
+        sd[f"{key}.bias"] = torch.as_tensor(np.array(p["bias"], np.float32))
+
+    for enc in ("fnet", "cnet"):
+        p = tree[enc]
+        conv(f"{enc}.conv1", p["conv1"])
+        conv(f"{enc}.conv2", p["conv2"])
+        for li in (1, 2, 3):
+            for bi in (0, 1):
+                blk = p[f"layer{li}_{bi}"]
+                pre = f"{enc}.layer{li}.{bi}"
+                conv(f"{pre}.conv1", blk["conv1"])
+                conv(f"{pre}.conv2", blk["conv2"])
+                if "downsample" in blk:
+                    conv(f"{pre}.downsample.0", blk["downsample"])
+    u = tree["update"]
+    for key, name in (("corr_encoder.0", "corr_enc1"),
+                      ("corr_encoder.2", "corr_enc2"),
+                      ("flow_encoder.0", "flow_enc1"),
+                      ("flow_encoder.2", "flow_enc2"),
+                      ("delta.0", "delta1"), ("delta.2", "delta2"),
+                      ("weight.0", "weight1"), ("weight.2", "weight2"),
+                      ("agg.conv1", "conv1"), ("agg.conv2", "conv2"),
+                      ("agg.eta.0", "eta"), ("agg.upmask.0", "upmask")):
+        conv(f"update.{key}", u["agg"][name] if key.startswith("agg")
+             else u[name])
+    for name, p in u["gru"].items():
+        conv(f"update.gru.{name}", p)
+    return sd
+
+
 def _params(d: Mapping, device) -> gm.GaussianParams:
     return gm.GaussianParams(*[_t(d[n], device, torch.float32)
                                for n in gm.PARAM_NAMES])
@@ -76,9 +117,9 @@ def viewpoint_store_from_numpy(d: Mapping, device="cuda"):
 
 
 def keyframe_store_from_numpy(d: Mapping, device="cuda"):
-    """The port keeps the mapper's subset of the KeyframeStore fields;
-    other fields in `d` are ignored."""
+    """Every KeyframeStore field, from `d`."""
     names = kstore.KeyframeStore.__dataclass_fields__
-    kinds = {"valid_depth_mask": torch.bool}
+    kinds = {k: torch.bool for k in ("valid_depth_mask", "mono_mask_up",
+                                     "valid_depth_mask_small", "dirty")}
     return kstore.KeyframeStore(**{
         k: _t(d[k], device, kinds.get(k, torch.float32)) for k in names})

@@ -9,8 +9,9 @@ Port of ``wildgs_slam_tpu/ops/rasterizer/__init__.py``. Three phases:
    id tables of fixed capacity;
 3. compositing: ``render`` uses the plain all-tiles path (``composite.py``,
    which also gives ``n_touched``); ``render_fused`` gathers one packed
-   (N, 16) attribute table into per-tile tables and composites them with the
-   CUDA kernels K1/K2 (``composite_cuda.py``).
+   (N, 16) attribute table into per-tile tables with the CUDA kernel K3 (its
+   backward K4, ``table_gather.py``) and composites them with the CUDA
+   kernels K1/K2 (``composite_cuda.py``).
 
 Screen-space mean gradients for densification flow through the
 ``mean2d_offset`` input (evaluate at zeros), as in the JAX package.
@@ -24,37 +25,19 @@ from . import composite_cuda
 from .binning import TILE, bin_gaussians, num_tiles
 from .composite import RenderOutput, composite, untile
 from .projection import ProjectedGaussians, project_gaussians
+from .table_gather import TableGather
 
 __all__ = ["render", "render_fused", "render_reference", "RenderOutput",
            "ProjectedGaussians", "project_gaussians", "bin_gaussians",
            "gather_table", "TILE"]
 
 
-class _TableGather(torch.autograd.Function):
-    """attrs[ids] for a (T, K) id table as one index_select; the backward
-    is an explicit index_add_ into (N, F) rows (autograd of ``attrs[ids]``
-    lowers to a sort-based index_put that is far slower on the card)."""
-
-    @staticmethod
-    def forward(ctx, attrs, ids):
-        safe = torch.clamp(ids, min=0).reshape(-1)
-        ctx.save_for_backward(safe)
-        ctx.n = attrs.shape[0]
-        return attrs.index_select(0, safe).reshape(ids.shape + attrs.shape[1:])
-
-    @staticmethod
-    def backward(ctx, grad):
-        (safe,) = ctx.saved_tensors
-        g = grad.reshape(safe.shape[0], -1)
-        out = torch.zeros(ctx.n, g.shape[1], dtype=g.dtype, device=g.device)
-        out.index_add_(0, safe, g)
-        return out, None
-
-
 def gather_table(attrs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(N, F) rows gathered into a (T, K, F) table; ids of -1 read row 0
-    (their slots lie past the tile's count and get zero gradient)."""
-    return _TableGather.apply(attrs, ids)
+    """(N, 16) rows gathered into a (T, K, 16) table by K3, its backward a
+    scatter-add by K4 (``table_gather.py``); ids of -1 read row 0 (their
+    slots lie past the tile's count and get zero gradient)."""
+    return TableGather.apply(attrs.contiguous(),
+                             ids.to(torch.int32).contiguous())
 
 
 def _project_and_bin(means3d, scales, rotations, opacities, sh_coeffs, w2c,
@@ -100,8 +83,9 @@ def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
                  capacity=512, chunk=64, scale_modifier=1.0,
                  mean2d_offset=None, alive=None, bin_kw=4) -> RenderOutput:
     """The mapping hot path, counterpart of ``render_pallas``: one packed
-    (N, 16) attribute table gathered into per-tile tables, composited by the
-    CUDA kernels K1/K2 on a CUDA tensor (their plain versions on the CPU).
+    (N, 16) attribute table gathered into per-tile tables by K3 (backward
+    K4), composited by K1/K2 on a CUDA tensor (the plain versions on the
+    CPU).
     Gives no ``n_touched`` (zeros); use ``render`` for covisibility."""
     if bg is None:
         bg = torch.zeros(3, dtype=means3d.dtype, device=means3d.device)

@@ -17,23 +17,16 @@ of the same formulas. A wrapper takes its plain version only for a tensor
 on the CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
-The kernels are compiled at first use with nvcc into one shared library
-with a plain C interface (``build/kernels/`` at the repository root) and
-loaded with ctypes.
+The kernels are built and loaded by ``wildgs_slam_tpu_torch/kernels.py``
+(nvcc at first use, one shared library for every source in ``csrc/``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
+from ... import kernels
+from ...kernels import check as _check, ptr as _ptr, stream as _stream
 from .binning import TILE
 from .composite import ALPHA_MIN, T_EPS, tile_pixel_coords
 
@@ -44,11 +37,6 @@ ONE_M_MIN = 0.01     # 1 - alpha >= 1 - 0.99
 A_MX, A_MY, A_CA, A_CB, A_CC = 0, 1, 2, 3, 4
 A_R, A_G, A_B, A_OP, A_D = 5, 6, 7, 8, 9
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("composite_fwd.cu", "composite_bwd.cu")
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 # ---------------------------------------------------------------------------
@@ -165,89 +153,6 @@ def composite_bwd_plain(counts, tile_ids, attrs, bg, tentry, tfin, gc, gd, ga,
     return dattrs
 
 
-# ---------------------------------------------------------------------------
-# build + bind
-# ---------------------------------------------------------------------------
-
-class _Library:
-    """The loaded kernel library (one per process)."""
-
-    handle = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
-                           "nvcc at first use")
-    return path
-
-
-def build_kernels() -> dict:
-    """Compile every source in ``csrc/`` with one nvcc each, all started
-    together, link them into one shared library and load it. Returns
-    {source: {"seconds": s, "ptxas": text}} (empty when already loaded)."""
-    if _Library.handle is not None:
-        return {}
-    digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libcomposite_{tag}.so"
-    log = {}
-    if not lib_path.exists():
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        procs = {}
-        for name in SOURCES:
-            obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
-            procs[name] = (obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, (obj, proc) in procs.items():
-            text, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{text}")
-            log[name] = {"seconds": time.perf_counter() - t0,
-                         "ptxas": text.strip()}
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        link = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-             "-o", str(tmp)] + [str(o) for o, _ in procs.values()],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.composite_fwd.argtypes = [vp] * 9 + [ci] * 4 + [vp]
-    lib.composite_fwd.restype = ci
-    lib.composite_bwd.argtypes = [vp] * 11 + [ci] * 4 + [vp]
-    lib.composite_bwd.restype = ci
-    _Library.handle = lib
-    return log
-
-
-def _library():
-    if _Library.handle is None:
-        build_kernels()
-    return _Library.handle
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} is {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
 def _check_table(counts, tile_ids, attrs, bg, ck):
     if attrs.dim() != 3 or attrs.shape[2] != ATTR_F:
         raise ValueError(f"attrs must be (T, K, {ATTR_F}), got "
@@ -263,14 +168,6 @@ def _check_table(counts, tile_ids, attrs, bg, ck):
     return T, K
 
 
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
 def composite_fwd(counts, tile_ids, attrs, bg, tw, ck):
     """K1. counts/tile_ids (T,) int32, attrs (T, K, 16) f32, bg (3,) f32 ->
     color (T, P, 3), depth, alpha, tfin (T, P), tentry (T, K // ck, P)."""
@@ -279,7 +176,7 @@ def composite_fwd(counts, tile_ids, attrs, bg, tw, ck):
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {attrs.device}")
     T, K = _check_table(counts, tile_ids, attrs, bg, ck)
-    lib = _library()
+    lib = kernels.library()
     dev = attrs.device
     color = torch.empty(T, P, 3, device=dev)
     depth = torch.empty(T, P, device=dev)
@@ -312,7 +209,7 @@ def composite_bwd(counts, tile_ids, attrs, bg, tentry, tfin, gc, gd, ga, gt,
     for name, x in (("tfin", tfin), ("gd", gd), ("ga", ga), ("gt", gt)):
         _check(name, x, torch.float32, (T, P), dev)
     _check("gc", gc, torch.float32, (T, P, 3), dev)
-    lib = _library()
+    lib = kernels.library()
     dattrs = torch.empty(T, K, ATTR_F, device=dev)
     with torch.cuda.device(dev):
         err = lib.composite_bwd(

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import float32_convs
+
 EPSILON = float(np.finfo(np.float32).eps)
 SSIM_C1 = 0.01 ** 2
 SSIM_C2 = 0.03 ** 2
@@ -32,6 +34,7 @@ def _gaussian_kernel(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+@float32_convs()
 def _blur(img: torch.Tensor, window_size: int, sigma: float = GAUSSIAN_SIGMA):
     """Separable Gaussian blur of (H, W, C) with 'same' zero padding."""
     k = torch.from_numpy(_gaussian_kernel(window_size, sigma)).to(img.device)

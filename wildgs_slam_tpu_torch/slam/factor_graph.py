@@ -1,0 +1,385 @@
+"""Factor graph of the tracking frontend; torch port of the frontend's
+subset of ``wildgs_slam_tpu/slam/factor_graph.py``.
+
+Edge topology (ii, jj, age, the inactive and bad lists, the proximity
+proposal with its NMS) lives on the host as numpy, as there. Edge state
+lives on the device: GRU hidden states, context features, flow targets
+and confidences are plain (E, h, w, C) tensors that grow and shrink with
+the edge list; the correlation volumes of the live edges are rows of one
+preallocated (capacity, h*w, sum of the 4 level sizes) bfloat16 tensor
+(the JAX package also stores them in bfloat16; the lookup reads them back
+in float32).
+
+``update_n`` runs the JAX ``_update_core`` semantics as a Python loop: per
+iteration reproject, clamp the motion features to ±64, look up the
+correlation, run the update operator, write the damping of the edges'
+source frames, then uncertainty-weighted BA over the active and the
+selected inactive edges; stop early once the mean |delta| is at most
+``eps``; finally one convex upsample with the last iteration's mask. With
+``gt_injection`` set, the update operator is swapped for ground-truth
+reprojection targets (the oracle used by the trajectory-accuracy gates)
+and every other stage stays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import droid_net
+from ..ops import correlation, dba, projective
+from . import keyframe_store as kstore
+
+EP_DAMP = 1e-7
+ORACLE_UP_FRAMES = 96   # frames below t1 whose disps_up the oracle refreshes
+CORR_CHUNK = 8          # edges per correlation-volume build
+DIST_CHUNK = 1024       # frame pairs per distance evaluation
+CORR_DTYPE = torch.bfloat16   # storage of the correlation volumes
+
+
+def _t(x, device):
+    return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+
+class FactorGraph:
+    def __init__(self, state, model: droid_net.DroidNet, max_factors=-1):
+        self.state = state
+        self.model = model
+        self.max_factors = max_factors
+        # oracle hook: callable(store, counter) -> (poses_gt (B, 7),
+        # disps_gt (B, h, w)); set, it replaces the update operator
+        self.gt_injection = None
+        store = state.store
+        self.device = store.poses.device
+        self.h, self.w = store.disps.shape[-2:]
+        e = np.zeros(0, np.int64)
+        self.ii, self.jj, self.age = e, e.copy(), e.copy()
+        self.ii_bad, self.jj_bad = e.copy(), e.copy()
+        self.ii_inac, self.jj_inac = e.copy(), e.copy()
+
+        def z(c):
+            return torch.zeros(0, self.h, self.w, c, device=self.device)
+        self.net, self.inp = z(128), z(128)
+        self.target, self.weight = z(2), z(2)
+        self.target_inac, self.weight_inac = z(2), z(2)
+        self.corr = None   # (capacity, h*w, levels) bfloat16 once edges exist
+        self.damping = 1e-6 * torch.ones(store.poses.shape[0], self.h,
+                                         self.w, device=self.device)
+
+    @property
+    def E(self) -> int:
+        return int(self.ii.shape[0])
+
+    # ------------------------------------------------------------------
+    # edge state
+    # ------------------------------------------------------------------
+
+    def _reserve_corr(self, need: int):
+        """Make room for `need` correlation rows (the live rows are kept)."""
+        cap = 0 if self.corr is None else self.corr.shape[0]
+        if need <= cap:
+            return
+        new_cap = max(need, 2 * cap,
+                      self.max_factors if self.max_factors > 0 else 64)
+        n_lvl = sum(a * b for a, b in correlation.level_shapes(self.h,
+                                                                self.w))
+        grown = torch.empty(new_cap, self.h * self.w, n_lvl,
+                            dtype=CORR_DTYPE, device=self.device)
+        if self.corr is not None:
+            grown[:self.E] = self.corr[:self.E]
+        self.corr = None
+        self.corr = grown
+
+    @torch.no_grad()
+    def _store_corr(self, ii, jj, off):
+        fmaps = self.state.store.fmaps
+        for s in range(0, ii.shape[0], CORR_CHUNK):
+            pyr = correlation.corr_pyramid(fmaps[ii[s:s + CORR_CHUNK]],
+                                           fmaps[jj[s:s + CORR_CHUNK]])
+            packed = correlation.pack_pyramid(pyr)
+            self.corr[off + s:off + s + packed.shape[0]] = packed
+
+    def _keep_rows(self, keep: np.ndarray):
+        """Compact the live edge state to the rows where `keep` is set."""
+        idx = _t(np.where(keep)[0], self.device)
+        self.net, self.inp = self.net[idx], self.inp[idx]
+        self.target, self.weight = self.target[idx], self.weight[idx]
+        if self.corr is not None:
+            self.corr[:idx.shape[0]] = self.corr[idx]
+
+    # ------------------------------------------------------------------
+    # edge management
+    # ------------------------------------------------------------------
+
+    def _filter_repeated_edges(self, ii, jj):
+        eset = set(zip(self.ii.tolist(), self.jj.tolist())) | set(
+            zip(self.ii_inac.tolist(), self.jj_inac.tolist()))
+        keep = [k for k, (i, j) in enumerate(zip(ii, jj))
+                if (int(i), int(j)) not in eset]
+        return ii[keep], jj[keep]
+
+    @torch.no_grad()
+    def add_factors(self, ii, jj, remove=False):
+        ii = np.asarray(ii, np.int64).reshape(-1)
+        jj = np.asarray(jj, np.int64).reshape(-1)
+        ii, jj = self._filter_repeated_edges(ii, jj)
+        if ii.shape[0] == 0:
+            return
+        if (self.max_factors > 0
+                and self.E + ii.shape[0] > self.max_factors
+                and self.corr is not None and remove):
+            ix = np.argsort(np.argsort(self.age))   # rank by age
+            self.rm_factors(ix >= self.max_factors - ii.shape[0], store=True)
+
+        store = self.state.store
+        E0 = self.E
+        it, jt = _t(ii, self.device), _t(jj, self.device)
+        self._reserve_corr(E0 + ii.shape[0])
+        self._store_corr(it, jt, E0)
+        target, _ = kstore.reproject(store, it, jt)
+        self.net = torch.cat([self.net, store.nets[it]])
+        self.inp = torch.cat([self.inp, store.inps[it]])
+        self.target = torch.cat([self.target, target])
+        self.weight = torch.cat([self.weight, torch.zeros_like(target)])
+        self.ii = np.concatenate([self.ii, ii])
+        self.jj = np.concatenate([self.jj, jj])
+        self.age = np.concatenate([self.age, np.zeros_like(ii)])
+
+    @torch.no_grad()
+    def rm_factors(self, mask, store=False):
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            return
+        if store:
+            idx = _t(np.where(mask)[0], self.device)
+            self.target_inac = torch.cat([self.target_inac, self.target[idx]])
+            self.weight_inac = torch.cat([self.weight_inac, self.weight[idx]])
+            self.ii_inac = np.concatenate([self.ii_inac, self.ii[mask]])
+            self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
+        keep = ~mask
+        self.ii, self.jj, self.age = (self.ii[keep], self.jj[keep],
+                                      self.age[keep])
+        self._keep_rows(keep)
+
+    def filter_edges(self):
+        """Remove low-confidence long-range edges."""
+        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+        self.rm_factors(mask, store=False)
+
+    @torch.no_grad()
+    def rm_keyframe(self, ix: int):
+        """Shift the store over keyframe ix and renumber the edges; edges
+        touching ix are dropped."""
+        kstore.remove_keyframe(self.state.store, ix)
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
+                                self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1,
+                                self.jj_inac)
+        if m.any():
+            idx = _t(np.where(~m)[0], self.device)
+            self.target_inac = self.target_inac[idx]
+            self.weight_inac = self.weight_inac[idx]
+            self.ii_inac, self.jj_inac = self.ii_inac[~m], self.jj_inac[~m]
+        m = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(m, store=False)
+
+    # ------------------------------------------------------------------
+    # updates
+    # ------------------------------------------------------------------
+
+    def _window(self, t0, t1, use_inactive):
+        """The pose window and the inactive edges that join the BA."""
+        if use_inactive and self.ii_inac.shape[0] > 0:
+            tmin = max(1, int(self.ii.min()) + 1) if t0 is None else t0
+            m = (self.ii_inac >= tmin - 3) & (self.jj_inac >= tmin - 3)
+        else:
+            m = np.zeros(self.ii_inac.shape[0], bool)
+        if t0 is None:
+            t0 = max(1, int(self.ii.min()) + 1)
+        if t1 is None:
+            t1 = max(int(self.ii.max()), int(self.jj.max())) + 1
+        sel = _t(np.where(m)[0], self.device)
+        ii_all = _t(np.concatenate([self.ii, self.ii_inac[m]]), self.device)
+        jj_all = _t(np.concatenate([self.jj, self.jj_inac[m]]), self.device)
+        return t0, t1, sel, ii_all, jj_all
+
+    def _ba_kwargs(self):
+        st = self.state
+        kw = dict(sensor_disps=None, sensor_valid=None)
+        if st.metric_depth_reg:
+            sh, sw = kstore.slice_hw(*st.store.mono_disps_up.shape[-2:])
+            kw = dict(sensor_disps=st.store.mono_disps,
+                      sensor_valid=st.store.mono_mask_up[:, sh, sw])
+        return kw
+
+    def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
+               motion_only=False):
+        return self.update_n(1, t0=t0, t1=t1, itrs=itrs,
+                             use_inactive=use_inactive,
+                             motion_only=motion_only)
+
+    @torch.no_grad()
+    def update_n(self, n, t0=None, t1=None, itrs=2, use_inactive=False,
+                 motion_only=False, eps=0.0):
+        """Up to `n` graph updates, stopping once the mean |delta| of an
+        iteration is at most `eps` (0: always n). Returns (iterations run,
+        mean |delta| of the last one)."""
+        if self.E == 0:
+            return None
+        if self.gt_injection is not None:
+            return self._update_n_oracle(n, t0, t1, itrs, use_inactive,
+                                         motion_only, eps)
+        st = self.state
+        store = st.store
+        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        ii_t, jj_t = ii_all[:self.E], jj_all[:self.E]
+        itgt, iwgt = self.target_inac[sel], self.weight_inac[sel]
+        coords0 = projective.coords_grid(self.h, self.w, device=self.device)
+        uw = (store.uncertainties_inv[ii_all][..., None]
+              if st.uncertainty_aware else None)
+        ba_kw = self._ba_kwargs()
+        corr_vol = self.corr[:self.E]
+        n_done, dmean = 0, torch.zeros((), device=self.device)
+        for _ in range(n):
+            coords1, _ = projective.projective_transform(
+                store.poses, store.disps, store.intrinsics, ii_t, jj_t)
+            motn = torch.clamp(torch.cat([coords1 - coords0,
+                                          self.target - coords1], dim=-1),
+                               -64.0, 64.0)
+            corr = correlation.corr_lookup_packed(corr_vol, coords1)
+            net, delta, weight, frames, eta, upmask = self.model.update(
+                self.net, self.inp, corr, motn, ii_t)
+            self.net, self.weight = net, weight
+            self.target = coords1 + delta
+            dmean = torch.linalg.norm(delta, dim=-1).mean()
+            self.damping[frames] = eta
+            weight_all = torch.cat([weight, iwgt])
+            poses, disps = dba.ba(
+                store.poses, store.disps, store.intrinsics,
+                torch.cat([self.target, itgt]),
+                weight_all * uw if uw is not None else weight_all,
+                0.2 * self.damping + EP_DAMP, ii_all, jj_all, t0, t1,
+                iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
+                motion_only=motion_only, **ba_kw)
+            store.poses.copy_(poses)
+            store.disps.copy_(disps)
+            n_done += 1
+            if eps > 0 and float(dmean) <= eps:
+                break
+        store.disps_up[frames] = droid_net.upsample_disp(store.disps[frames],
+                                                         upmask)
+        self.age += n_done
+        return n_done, dmean
+
+    def _oracle_targets(self, ii, jj):
+        """Ground-truth reprojection targets with confidence 0.9."""
+        poses_gt, disps_gt = self.gt_injection(self.state.store,
+                                               self.state.counter)
+        tgt, _ = projective.projective_transform(
+            poses_gt, disps_gt, self.state.store.intrinsics, ii, jj)
+        return tgt, torch.full_like(tgt, 0.9)
+
+    @torch.no_grad()
+    def _update_n_oracle(self, n, t0, t1, itrs, use_inactive, motion_only,
+                         eps=0.0):
+        """update_n with the update operator swapped for ground-truth
+        targets; inactive-edge reuse, damping and the BA are the production
+        path. With eps > 0 it stops once the mean flow residual |target -
+        reprojection| over the active edges is below eps."""
+        st = self.state
+        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        ii_t, jj_t = ii_all[:self.E], jj_all[:self.E]
+        tgt, wgt = self._oracle_targets(ii_t, jj_t)
+        self.target, self.weight = tgt, wgt
+        tgt_all = torch.cat([tgt, self.target_inac[sel]])
+        wgt_all = torch.cat([wgt, self.weight_inac[sel]])
+        eta = 0.2 * self.damping + EP_DAMP
+        n_done = 0
+        for _ in range(n):
+            if eps > 0 and n_done > 0:
+                coords1, _ = kstore.reproject(st.store, ii_t, jj_t)
+                if float(torch.linalg.norm(tgt - coords1, dim=-1).mean()) < eps:
+                    break
+            kstore.ba(st.store, tgt_all, wgt_all, eta, ii_all, jj_all, t0, t1,
+                      iters=itrs, motion_only=motion_only,
+                      metric_depth_reg=st.metric_depth_reg,
+                      uncertainty_aware=st.uncertainty_aware)
+            n_done += 1
+        # keep disps_up in sync: the oracle has no learned upsampling mask
+        store = st.store
+        frames = torch.arange(max(0, t1 - ORACLE_UP_FRAMES), t1,
+                              device=self.device)
+        store.disps_up[frames] = kstore.resize_bilinear(
+            store.disps[frames], store.disps_up.shape[-2:])
+        self.age += n_done
+        return n_done, torch.zeros((), device=self.device)
+
+    # ------------------------------------------------------------------
+    # edge proposal (host numpy, as the JAX package)
+    # ------------------------------------------------------------------
+
+    def add_neighborhood_factors(self, t0, t1, r=3):
+        ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1),
+                             indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
+        self.add_factors(ii[keep], jj[keep])
+
+    @torch.no_grad()
+    def _distance_matrix(self, ii, jj, beta):
+        out = np.empty(len(ii), np.float32)
+        for s in range(0, len(ii), DIST_CHUNK):
+            e = min(len(ii), s + DIST_CHUNK)
+            d = kstore.distance(self.state.store, _t(ii[s:e], self.device),
+                                _t(jj[s:e], self.device), beta=beta)
+            out[s:e] = d.cpu().numpy()
+        return out
+
+    def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
+                              thresh=16.0, remove=False):
+        t = self.state.counter
+        ix = np.arange(t0, t)
+        jx = np.arange(t1, t)
+        if len(ix) == 0 or len(jx) == 0:
+            return
+        ii, jj = np.meshgrid(ix, jx, indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        d = self._distance_matrix(ii, jj, beta)
+        d[ii - rad < jj] = np.inf
+        d[d > 100] = np.inf
+
+        def suppress(i, j):
+            for di in range(-nms, nms + 1):
+                for dj in range(-nms, nms + 1):
+                    if abs(di) + abs(dj) <= max(min(abs(i - j) - 2, nms), 0):
+                        i1, j1 = i + di, j + dj
+                        if (t0 <= i1 < t) and (t1 <= j1 < t):
+                            d[(i1 - t0) * (t - t1) + (j1 - t1)] = np.inf
+
+        for i, j in zip(np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
+                        np.concatenate([self.jj, self.jj_bad, self.jj_inac])):
+            suppress(i, j)
+        es = []
+        for i in range(t0, t):
+            for j in range(max(i - rad - 1, 0), i):
+                es.append((i, j))
+                es.append((j, i))
+                d[(i - t0) * (t - t1) + (j - t1)] = np.inf
+        for k in np.argsort(d):
+            if d[k] > thresh:
+                continue
+            if len(es) > self.max_factors:
+                break
+            i, j = int(ii[k]), int(jj[k])
+            es.append((i, j))
+            es.append((j, i))
+            suppress(i, j)
+        if es:
+            ii_new, jj_new = np.array(es).T
+            self.add_factors(ii_new, jj_new, remove)

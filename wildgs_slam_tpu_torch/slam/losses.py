@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import ssim as ssim_ops
+from ..utils.precision import float32_convs
 
 DEPTH_MAX_CLIP = 5.0
 EPSILON = ssim_ops.EPSILON
@@ -22,6 +23,7 @@ _SCHARR_Y = [[3, 0, -3], [10, 0, -10], [3, 0, -3]]
 _SCHARR_X = [[3, 10, 3], [0, 0, 0], [-3, -10, -3]]
 
 
+@float32_convs()
 def image_gradient(gray: torch.Tensor):
     """Scharr gradients of an (H, W) image -> (grad_v, grad_h)."""
     p = F.pad(gray[None, None], (1, 1, 1, 1), mode="reflect")
@@ -33,6 +35,7 @@ def image_gradient(gray: torch.Tensor):
     return norm * gv, norm * gh
 
 
+@float32_convs()
 def image_gradient_mask(gray: torch.Tensor, eps: float = 0.01):
     """3x3 all-valid masks."""
     p = (F.pad(gray[None, None], (1, 1, 1, 1), mode="reflect").abs()

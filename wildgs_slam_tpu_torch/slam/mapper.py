@@ -31,6 +31,7 @@ import torch
 from ..models.uncertainty import UncertaintyMLP, init_uncertainty_mlp
 from ..ops import lie
 from ..ops.rasterizer import render, render_fused
+from ..utils.precision import float32_convs
 from ..utils.printer import PRINTER, FontColor
 from ..utils.profiling import TIMER
 from . import gaussian_map as gm
@@ -372,6 +373,7 @@ class Mapper:
             K -= max_k
         self._opt_segment(K, view_pool, probs, freeze_after, initialization)
 
+    @float32_convs()   # the loss's backward convolves too
     def _opt_segment(self, K, view_pool, probs, freeze_after,
                      initialization=False):
         fh, fw = self.vstore.features.shape[1:3]

@@ -1,9 +1,10 @@
 """SlamState: the single-controller shared state; torch port of
 ``wildgs_slam_tpu/slam/state.py``.
 
-One host object owns the device ``KeyframeStore`` and the host-side
-payloads the mapper reads (full-resolution images, DINO features,
-timestamps), as numpy arrays.
+One host object owns the device ``KeyframeStore`` that the frontend and the
+mapper share, the keyframe counter, and the host-side payloads the mapper
+reads (full-resolution images, DINO features, timestamps) as numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -46,3 +47,10 @@ class SlamState:
             self.dino_feats[index] = np.asarray(dino)
         self.timestamps[index] = timestamp
         self.counter = max(self.counter, index + 1)
+
+    def remove_keyframe_host(self, ix):
+        """Shift the host-side per-frame arrays down over slot ix."""
+        self.images[ix:-1] = self.images[ix + 1:]
+        if self.dino_feats is not None:
+            self.dino_feats[ix:-1] = self.dino_feats[ix + 1:]
+        self.timestamps[ix:-1] = self.timestamps[ix + 1:]
