@@ -74,12 +74,14 @@ CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
                       "tum_dynamic.yaml")
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-# fp32 operations per live (slot, pixel) pair that each function needs
-# (the forward's geometry, exp counted as one operation, blending and the
-# four sums; the backward's geometry, g, the suffix, dalpha, the 10
-# gradients and their sums)
-FWD_OPS_PER_SLOT_PIXEL = 30
-BWD_OPS_PER_SLOT_PIXEL = 70
+# fp32 operations that K1/K2 need per (slot, pixel) pair: every live pair of
+# an open chunk the geometry that finds it dead or alive (dx, dy, power, exp
+# counted as one, raw and the two tests); each alive pair (alpha >= 1/255
+# and t_after >= 1e-4) the rest: blending and the four sums (K1), or g, the
+# suffix, dalpha, the 10 gradients and their sums (K2)
+OPS_PER_LIVE_PAIR = 15
+FWD_OPS_PER_ALIVE_PAIR = 15
+BWD_OPS_PER_ALIVE_PAIR = 55
 N_INIT_KEYFRAMES = 5     # keyframes at initialize_mapper
 N_ONLINE_KEYFRAMES = 3   # on_keyframe calls after it
 TOL = dict(color=1e-5, depth=1e-4, alpha=1e-5, tfin=1e-5, tentry=1e-5)
@@ -292,39 +294,60 @@ def kernel_phase(dev):
     if not bwd_rel < BWD_MAX_REL:
         raise AssertionError(f"K2 max-rel {bwd_rel} >= {BWD_MAX_REL}")
 
-    # the work these inputs need: live slots of the chunks a tile opens
+    # the work these inputs need: live slots of the chunks a tile opens, and
+    # of their slot-pixel pairs those alive (alpha >= 1/255, t_after >= 1e-4)
     starts = torch.arange(n_chunks, device=dev) * ck
     opened = (starts[None] < counts[:, None]) & (tentry.amax(-1) >= 1e-4)
     live = torch.clamp(counts[:, None].long() - starts[None], 0, ck)
     slots = int((live * opened).sum())
     slot_pixels = slots * 256
+    px, py = cc.tile_pixel_coords(tid, tw)
+    alive = 0
+    for c in range(n_chunks):
+        sl = slice(c * ck, (c + 1) * ck)
+        a_c, _, _, _, _, dead = cc._chunk_geometry(
+            table[:, sl], cc._chunk_live(counts, c, ck), px, py)
+        one_m = torch.clamp(1.0 - a_c, min=cc.ONE_M_MIN)
+        t_after = tentry[:, c][:, None, :] * torch.cumprod(one_m, dim=1)
+        alive += int((~dead & (t_after >= 1e-4) & opened[:, c, None, None]
+                      ).sum())
     f4 = 4
     fwd_bytes = (slots * 16 * f4 + T * 8
                  + T * 256 * 6 * f4 + T * n_chunks * 256 * f4)
     bwd_bytes = (slots * 16 * f4 + T * 8 + T * n_chunks * 256 * f4
                  + T * 256 * 5 * f4 + T * K * 16 * f4)
-    print(f"work: {slots} live slots in {int(opened.sum())} open chunks "
-          f"({slot_pixels / 1e6:.1f} M slot-pixels); bound counting: "
-          f"{FWD_OPS_PER_SLOT_PIXEL} (fwd) / {BWD_OPS_PER_SLOT_PIXEL} (bwd) "
-          f"fp32 ops per live slot-pixel at {FP32_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s, bytes of live table rows, tables and outputs read or "
-          f"written once at {BYTES_PER_S / 1e12:.2f} TB/s")
+    fwd_ops = (OPS_PER_LIVE_PAIR * slot_pixels
+               + FWD_OPS_PER_ALIVE_PAIR * alive)
+    bwd_ops = (OPS_PER_LIVE_PAIR * slot_pixels
+               + BWD_OPS_PER_ALIVE_PAIR * alive)
+    print(f"work: {slots} live slots in {int(opened.sum())} open chunks; "
+          f"{slot_pixels} live slot-pixels, of them {alive} alive "
+          f"({alive / slot_pixels * 100:.2f}%: alpha >= 1/255 and t_after >= "
+          f"1e-4); bound counting: {OPS_PER_LIVE_PAIR} fp32 ops per live "
+          f"slot-pixel plus {FWD_OPS_PER_ALIVE_PAIR} (fwd) / "
+          f"{BWD_OPS_PER_ALIVE_PAIR} (bwd) per alive one at "
+          f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, bytes of live table rows, "
+          f"tables and outputs read or written once at "
+          f"{BYTES_PER_S / 1e12:.2f} TB/s")
 
     rows = table_kernel_rows(attrs, ids, dev)
     for name, fn, plain, ops, nbytes, err, src, line in (
             ("composite_fwd",
              lambda: cc.composite_fwd(counts, tid, table, bg, tw, ck),
              lambda: cc.composite_fwd_plain(counts, tid, table, bg, tw, ck),
-             FWD_OPS_PER_SLOT_PIXEL * slot_pixels, fwd_bytes,
+             fwd_ops, fwd_bytes,
              max(fwd_err.values()), "composite_fwd.cu", 118),
             ("composite_bwd", lambda: cc.composite_bwd(*bargs),
              lambda: cc.composite_bwd_plain(*bargs),
-             BWD_OPS_PER_SLOT_PIXEL * slot_pixels, bwd_bytes, bwd_abs,
+             bwd_ops, bwd_bytes, bwd_abs,
              "composite_bwd.cu", 182)):
-        ms = time_ms(fn, 50, rounds=5)
+        per_round = time_rounds(fn, 50, rounds=5)
+        ms = float(np.median(per_round))
         plain_ms = time_ms(plain, 3, warmup=1)
         b, by, t_ops, t_bytes = bound(ops, nbytes)
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms); bound "
+        print(f"{name}: {ms:.4f} ms, median of 5 rounds of 50 (rounds "
+              f"{min(per_round):.4f}-{max(per_round):.4f}; plain "
+              f"{plain_ms:.2f} ms); bound "
               f"{b:.4f} ms by {by}: {ops / 1e9:.3f} G fp32 ops -> "
               f"{t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; "
               f"{b / ms * 100:.1f}% of bound")

@@ -13,6 +13,12 @@ max-relative error (max |a - b| / max |b|) below 1e-5. K3 (the table
 gather) copies rows and must equal its plain version exactly; K4 (the
 scatter-add) sums with atomics in another order: max-relative below 1e-5,
 with nonzero cotangents in the empty slots too (both skip them).
+
+K2 skips work it can prove adds an exact zero: chunks past a tile's count,
+chunks every pixel enters saturated (transmittance < 1e-4), a warp's
+reduction when none of its pixels is alive, and a warp's walk once all its
+pixels are saturated. `test_bwd_saturated_chunks` holds those skips
+against the plain version on a table built to reach them.
 """
 
 import numpy as np
@@ -60,6 +66,42 @@ def _table(n, h, w, capacity, seed, dev):
     return bins.counts, tr.gather_table(attrs, bins.ids).contiguous()
 
 
+def saturating_table(K=128, seed=5):
+    """counts, packed table and tile-grid width of a 48x64 image (3x4
+    tiles), drawn with numpy. In tiles 0-7 a dense, opaque front layer (12
+    Gaussians of sigma 12 px at the tile's centre, opacity 0.9-0.999)
+    brings every pixel below transmittance 1e-4 within its first 12 slots;
+    behind it, and alone in tiles 8-11, random Gaussians. Tiles 0 and 11
+    are filled to the capacity K; the others hold K/2+1 to K-1 entries."""
+    rng = np.random.RandomState(seed)
+    th, tw = 3, 4
+    T = th * tw
+    ang = rng.uniform(0, np.pi, (T, K))
+    s1, s2 = rng.uniform(1.5, 6, (2, T, K))
+    c, s = np.cos(ang), np.sin(ang)
+    x0 = (np.arange(T) % tw)[:, None] * 16.0
+    y0 = (np.arange(T) // tw)[:, None] * 16.0
+    table = np.zeros((T, K, 16), np.float32)
+    table[..., 0] = x0 + rng.uniform(-8, 24, (T, K))
+    table[..., 1] = y0 + rng.uniform(-8, 24, (T, K))
+    table[..., 2] = c * c / s1 ** 2 + s * s / s2 ** 2   # inverse covariance
+    table[..., 3] = c * s * (1 / s1 ** 2 - 1 / s2 ** 2)
+    table[..., 4] = s * s / s1 ** 2 + c * c / s2 ** 2
+    table[..., 5:8] = rng.uniform(0, 1, (T, K, 3))
+    table[..., 8] = rng.uniform(0.2, 0.9, (T, K))
+    table[..., 9] = rng.uniform(2, 4, (T, K))
+    front = slice(0, 12)
+    table[:8, front, 0] = x0[:8] + 8
+    table[:8, front, 1] = y0[:8] + 8
+    table[:8, front, 2] = table[:8, front, 4] = 1 / 144
+    table[:8, front, 3] = 0
+    table[:8, front, 8] = rng.uniform(0.9, 0.999, (8, 12))
+    table[:8, front, 9] = 1.0
+    counts = rng.randint(K // 2 + 1, K, T).astype(np.int32)
+    counts[0] = counts[-1] = K
+    return counts, table, tw
+
+
 def _ids_attrs(n, h, w, capacity, dev):
     """A binned id table of a seeded scene and random (n, 16) rows."""
     rng = np.random.RandomState(3)
@@ -84,15 +126,13 @@ def _max_rel(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-12))
 
 
-@pytest.mark.parametrize("n,h,w,capacity", [(300, 48, 64, 128),
-                                            (131072, 384, 512, 512)])
-def test_kernels_match_plain(n, h, w, capacity):
-    _need_card()
-    dev = torch.device("cuda")
-    counts, table = _table(n, h, w, capacity, 0, dev)
-    tw = -(-w // 16)
+def _composite_vs_plain(counts, table, tw, ck):
+    """K1 and K2 against their plain versions on one table, with seeded
+    random cotangents: forward atol, gradients max-rel, lanes 10-15 of the
+    kernel's gradients exactly 0. Returns the plain forward's tentry and
+    both gradients."""
+    dev = table.device
     T = table.shape[0]
-    assert T == (-(-h // 16)) * tw
     tid = torch.arange(T, dtype=torch.int32, device=dev)
     bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -100,8 +140,8 @@ def test_kernels_match_plain(n, h, w, capacity):
     gd, ga, gt = (torch.randn(T, 256, device=dev, generator=g)
                   for _ in range(3))
 
-    k_out = cc.composite_fwd(counts, tid, table, bg, tw, 64)
-    p_out = cc.composite_fwd_plain(counts, tid, table, bg, tw, 64)
+    k_out = cc.composite_fwd(counts, tid, table, bg, tw, ck)
+    p_out = cc.composite_fwd_plain(counts, tid, table, bg, tw, ck)
     for name, a, b, tol in zip(("color", "depth", "alpha", "tfin", "tentry"),
                                k_out, p_out,
                                (1e-5, 1e-4, 1e-5, 1e-5, 1e-5)):
@@ -109,12 +149,45 @@ def test_kernels_match_plain(n, h, w, capacity):
         assert err <= tol, (name, err)
 
     args = (counts, tid, table, bg, p_out[4], p_out[3], gc, gd, ga, gt, tw,
-            64)
+            ck)
     k_d = cc.composite_bwd(*args)
     p_d = cc.composite_bwd_plain(*args)
     torch.cuda.synchronize()
     assert _max_rel(k_d, p_d) < 1e-5
     assert bool((k_d[..., 10:] == 0).all())
+    return p_out[4], k_d, p_d
+
+
+@pytest.mark.parametrize("ck", [32, 64])
+@pytest.mark.parametrize("n,h,w,capacity", [(300, 48, 64, 128),
+                                            (131072, 384, 512, 512)])
+def test_kernels_match_plain(n, h, w, capacity, ck):
+    _need_card()
+    counts, table = _table(n, h, w, capacity, 0, torch.device("cuda"))
+    tw = -(-w // 16)
+    assert table.shape[0] == (-(-h // 16)) * tw
+    _composite_vs_plain(counts, table, tw, ck)
+
+
+@pytest.mark.parametrize("ck", [32, 64])
+def test_bwd_saturated_chunks(ck):
+    """K1/K2 on a table whose tiles saturate before their count, with two
+    tiles filled to the capacity: the same tolerances, and every slot of a
+    saturated chunk (and past a tile's count) exactly 0."""
+    _need_card()
+    dev = torch.device("cuda")
+    counts_np, table_np, tw = saturating_table()
+    counts = torch.as_tensor(counts_np, device=dev)
+    table = torch.as_tensor(table_np, device=dev)
+    K = table.shape[1]
+    tentry, k_d, p_d = _composite_vs_plain(counts, table, tw, ck)
+    starts = torch.arange(K // ck, device=dev) * ck
+    below = starts[None] < counts[:, None]
+    sat = below & (tentry.amax(-1) < 1e-4)
+    assert bool(sat[0, -1]) and not bool(sat[8:].any())
+    zero = (~below | sat).repeat_interleave(ck, dim=1)        # (T, K)
+    zero |= torch.arange(K, device=dev)[None] >= counts[:, None]
+    assert bool((k_d[zero] == 0).all()) and bool((p_d[zero] == 0).all())
 
 
 def test_render_fused_gradients_on_card():

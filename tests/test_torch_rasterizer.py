@@ -32,6 +32,7 @@ from wildgs_slam_tpu_torch.ops import sh as tsh
 from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as tcc
+from test_torch_kernels_gpu import saturating_table
 
 torch.set_num_threads(1)
 H, W = 48, 64
@@ -216,6 +217,46 @@ def test_composite_kernels_plain_vs_pallas(scene, ck):
     assert max_rel(a.grad, jgrad[0]) < 1e-5
     assert max_rel(bgt.grad, jgrad[1]) < 1e-5
     assert tcc.composite_fwd.launches == 0  # no kernel on a CPU tensor
+
+
+@pytest.mark.parametrize("ck", [8, 32])
+def test_composite_bwd_saturated_chunks_vs_pallas(ck):
+    """K2's plain version against the Pallas VJP on a table whose tiles
+    saturate before their count (a dense, opaque front layer; two tiles
+    filled to the capacity): every slot of a chunk that every pixel enters
+    with transmittance < 1e-4 has an exactly zero gradient in both, the
+    premise of the CUDA kernel's skips."""
+    counts, table, tw = saturating_table()
+    n_t, K, _ = table.shape
+    bg = np.array([0.1, 0.5, 0.9], np.float32)
+    rng = np.random.RandomState(3)
+    gc = rng.normal(size=(n_t, 256, 3)).astype(np.float32)
+    gd, ga, gt = (rng.normal(size=(n_t, 256)).astype(np.float32)
+                  for _ in range(3))
+    jout, vjp = jax.vjp(
+        lambda a, b: jpc.composite_tiles_pallas(tw, ck, True,
+                                                jnp.asarray(counts), a, b),
+        jnp.asarray(table), jnp.asarray(bg))
+    jgrad = np.asarray(vjp(jpc.PallasTiles(
+        jnp.asarray(gc), jnp.asarray(gd), jnp.asarray(ga),
+        jnp.asarray(gt)))[0])
+
+    tid = torch.arange(n_t, dtype=torch.int32)
+    color, depth, alpha, tfin, tentry = tcc.composite_fwd_plain(
+        T(counts, torch.int32), tid, T(table), T(bg), tw, ck)
+    np.testing.assert_allclose(color, jout.color, atol=1e-5)
+    np.testing.assert_allclose(tfin, jout.tfin, atol=1e-5)
+    dattrs = tcc.composite_bwd_plain(T(counts, torch.int32), tid, T(table),
+                                     T(bg), tentry, tfin, T(gc), T(gd), T(ga),
+                                     T(gt), tw, ck).numpy()
+    assert max_rel(dattrs, jgrad) < 1e-5
+
+    starts = np.arange(K // ck) * ck
+    sat = (starts[None] < counts[:, None]) & (tentry.amax(-1).numpy() < 1e-4)
+    assert sat[0, -1] and sat.sum() >= 8 and not sat[8:].any()
+    rows = np.repeat(sat, ck, axis=1)                       # (T, K)
+    assert np.all(dattrs[rows] == 0) and np.all(jgrad[rows] == 0)
+    assert np.abs(dattrs[~rows]).max() > 0
 
 
 def _loss_and_grads(renderer, scene, torch_side, **kw):

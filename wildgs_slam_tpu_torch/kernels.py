@@ -33,7 +33,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers, then ints, then the stream)
 SIGNATURES = {
     "composite_fwd": [_VP] * 9 + [_CI] * 4 + [_VP],
-    "composite_bwd": [_VP] * 11 + [_CI] * 4 + [_VP],
+    "composite_bwd": [_VP] * 12 + [_CI] * 4 + [_VP],
     "table_gather": [_VP] * 3 + [_CI] * 2 + [_VP],
     "table_scatter_add": [_VP] * 3 + [_CI] * 2 + [_VP],
 }

@@ -10,7 +10,10 @@ of each table row:
   composites each tile front to back in chunks of ``ck`` and also writes
   ``tentry``, the transmittance entering each chunk.
 - K2 ``composite_bwd`` (``csrc/composite_bwd.cu``, replaces ``_bwd_kernel``)
-  walks the chunks back to front and writes per-slot gradients (T, K, 16).
+  writes per-slot gradients (T, K, 16) in two CUDA kernels on a (tile,
+  chunk) grid: each chunk's per-pixel total of w g into a (T, K // ck, 256)
+  scratch, then each chunk's gradients from the later chunks' totals. One
+  call counts as one launch.
 
 ``composite_fwd_plain`` / ``composite_bwd_plain`` are chunked torch versions
 of the same formulas. A wrapper takes its plain version only for a tensor
@@ -210,12 +213,13 @@ def composite_bwd(counts, tile_ids, attrs, bg, tentry, tfin, gc, gd, ga, gt,
         _check(name, x, torch.float32, (T, P), dev)
     _check("gc", gc, torch.float32, (T, P, 3), dev)
     lib = kernels.library()
+    totals = torch.empty(T, K // ck, P, device=dev)   # per-chunk sums of w g
     dattrs = torch.empty(T, K, ATTR_F, device=dev)
     with torch.cuda.device(dev):
         err = lib.composite_bwd(
             _ptr(counts), _ptr(tile_ids), _ptr(attrs), _ptr(bg), _ptr(tentry),
-            _ptr(tfin), _ptr(gc), _ptr(gd), _ptr(ga), _ptr(gt), _ptr(dattrs),
-            T, K, ck, tw, _stream(dev))
+            _ptr(tfin), _ptr(gc), _ptr(gd), _ptr(ga), _ptr(gt), _ptr(totals),
+            _ptr(dattrs), T, K, ck, tw, _stream(dev))
     if err:
         raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
     composite_bwd.launches += 1
