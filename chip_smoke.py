@@ -7,15 +7,18 @@ Phases, each printing its own lines:
      CUDA versions (the global TF32 flags stay at PyTorch's defaults: the
      port pins its own convolutions to float32);
   2. build of the CUDA kernels from csrc/ (nvcc, one per source, in
-     parallel), with what ptxas reports;
+     parallel), with what ptxas reports, and one resource line for each of
+     K1's and K4's kernels;
   3. each kernel against its plain PyTorch version at mapping shapes
      (T=768 tiles, K=512 slots, chunk 64, N=262,144 Gaussians), on a table
      made by the port's own projection and binning of a seeded scene: K1/K2
      (composite), K3 (table gather, exact) and K4 (its scatter-add, with
      random cotangents in every slot);
-  4. each kernel's time (CUDA events, the median of several rounds)
-     beside its bound, its plain version's time and, where one exists, one
-     library call's time;
+  4. each kernel's time on the device per call (torch.profiler over 20
+     calls; the median of CUDA-event rounds of back-to-back calls beside
+     it, which includes any wait for the host) beside its bound, its plain
+     version's time and, where one exists, one library call's device time;
+     K4's zero fill and its add apart;
   5. the mapper's keyframe path through Mapper's entry points
      (initialize_mapper, then on_keyframe) at the full widths of
      configs/Dynamic/TUM_RGBD/tum_dynamic.yaml on a seeded synthetic scene,
@@ -36,6 +39,13 @@ Phases, each printing its own lines:
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
 from any working directory.
+
+    python3 chip_smoke.py --kernels-from DIR
+
+runs phases 1-4 only, on the port package found in DIR (a checkout of
+another commit, e.g. unpacked with `git archive`), and ends with one JSON
+line of the kernels' times: an A/B of two commits' kernels by the same
+script, run in turns in one call on one card.
 """
 
 from __future__ import annotations
@@ -48,7 +58,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, HERE)
+KERNELS_FROM = (os.path.abspath(sys.argv[sys.argv.index("--kernels-from") + 1])
+                if "--kernels-from" in sys.argv else None)
+sys.path.insert(0, KERNELS_FROM or HERE)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -184,6 +196,59 @@ def bound(ops, nbytes):
                                  else "bytes"), t_ops, t_bytes
 
 
+def ptxas_resources(log, entries):
+    """{entry: ptxas's registers, shared memory and spills} for the kernels
+    whose mangled names contain one of `entries`, from the build log."""
+    found = {}
+    for info in log.values():
+        entry, spill = None, ""
+        for line in info["ptxas"].splitlines():
+            if "Compiling entry function" in line:
+                entry = next((e for e in entries if e in line), None)
+            elif entry and "spill" in line:
+                spill = line.strip()
+            elif entry and "Used" in line:
+                found[entry] = f"{line.split(':', 1)[1].strip()}; {spill}"
+                entry, spill = None, ""
+    return found
+
+
+def device_ms(fn, reps=20):
+    """Device time per call of fn: the summed durations of the device
+    operations (kernels, memsets) that torch.profiler records over `reps`
+    calls, and {operation name: ms per call}. Unlike CUDA events around
+    back-to-back calls, it leaves out the gaps in which the device waits
+    for the host to launch the next call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, total_us, n_ops, by_name = device_summary(prof)
+    if n_ops == 0:
+        raise AssertionError("torch.profiler recorded no device operation")
+    return total_us / 1e3 / reps, {k: us / 1e3 / reps
+                                   for k, (us, _) in by_name.items()}
+
+
+def timed_row(name, fn, plain, rounds, reps, plain_reps, plain_rounds):
+    """Time one wrapper: device ms per call (torch.profiler), the median of
+    CUDA-event rounds of back-to-back calls, and its plain version's median.
+    Prints the rounds; returns (device ms, by name, plain ms)."""
+    per_round = time_rounds(fn, reps, rounds=rounds)
+    b2b = float(np.median(per_round))
+    dev, by_name = device_ms(fn)
+    plain_ms = time_ms(plain, plain_reps, warmup=1, rounds=plain_rounds)
+    print(f"{name}: device {dev:.4f} ms per call (torch.profiler, 20 calls); "
+          f"back to back {b2b:.4f} ms, median of {rounds} rounds of {reps} "
+          f"(rounds {min(per_round):.4f}-{max(per_round):.4f}); plain "
+          f"{plain_ms:.4f} ms")
+    return dev, by_name, plain_ms
+
+
 def table_kernel_rows(attrs, ids, dev):
     """K3/K4 against their plain versions, timed beside their bounds, their
     plain versions and the library calls the port used before them."""
@@ -239,17 +304,17 @@ def table_kernel_rows(attrs, ids, dev):
             ("table_scatter_add", lambda: tg.table_scatter_add(gt, ids, N),
              lambda: tg.table_scatter_add_plain(gt, ids, N), lib_scatter,
              scatter_bytes, scat_abs)):
-        per_round = time_rounds(fn, 50, rounds=9)
-        ms = float(np.median(per_round))
-        plain_ms = time_ms(plain, 20, rounds=5)
-        lib_ms = time_ms(lib, 50, rounds=9)
+        ms, by_name, plain_ms = timed_row(name, fn, plain, 9, 50, 20, 5)
+        lib_ms = device_ms(lib)[0]
         b, by, _, t_bytes = bound(0, nbytes)
-        print(f"{name}: {ms:.4f} ms, median of 9 rounds of 50 (rounds "
-              f"{min(per_round):.4f}-{max(per_round):.4f}; plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms); bound {b:.4f} "
-              f"ms by {by}: {nbytes / 1e6:.2f} MB; {b / ms * 100:.1f}% of "
-              f"bound; SM clock, max SM clock now: "
+        print(f"{name}: library {lib_ms:.4f} ms (device); bound {b:.4f} ms "
+              f"by {by}: {nbytes / 1e6:.2f} MB; {b / ms * 100:.1f}% of bound; "
+              f"SM clock, max SM clock now: "
               f"{card_line('clocks.sm,clocks.max.sm')}")
+        if name == "table_scatter_add":
+            fill = sum(v for k, v in by_name.items() if "emset" in k)
+            print(f"K4 apart: zero fill of {N * 64 / 1e6:.2f} MB {fill:.4f} "
+                  f"ms, add kernel {ms - fill:.4f} ms per call (device)")
         rows.append(dict(
             name=name, route="cuda",
             source="wildgs_slam_tpu_torch/csrc/table_gather.cu",
@@ -341,15 +406,10 @@ def kernel_phase(dev):
              lambda: cc.composite_bwd_plain(*bargs),
              bwd_ops, bwd_bytes, bwd_abs,
              "composite_bwd.cu", 182)):
-        per_round = time_rounds(fn, 50, rounds=5)
-        ms = float(np.median(per_round))
-        plain_ms = time_ms(plain, 3, warmup=1)
+        ms, _, plain_ms = timed_row(name, fn, plain, 5, 50, 3, 1)
         b, by, t_ops, t_bytes = bound(ops, nbytes)
-        print(f"{name}: {ms:.4f} ms, median of 5 rounds of 50 (rounds "
-              f"{min(per_round):.4f}-{max(per_round):.4f}; plain "
-              f"{plain_ms:.2f} ms); bound "
-              f"{b:.4f} ms by {by}: {ops / 1e9:.3f} G fp32 ops -> "
-              f"{t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; "
+        print(f"{name}: bound {b:.4f} ms by {by}: {ops / 1e9:.3f} G fp32 ops "
+              f"-> {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; "
               f"{b / ms * 100:.1f}% of bound")
         rows.append(dict(
             name=name, route="cuda",
@@ -856,6 +916,7 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     print(card)
+    print(f"port package: {os.path.dirname(kernels.CSRC)}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -865,8 +926,15 @@ def main():
     for src, info in log.items():
         print(f"  {src}: {info['seconds']:.2f} s\n    "
               + info["ptxas"].replace("\n", "\n    "))
+    for entry, used in ptxas_resources(
+            log, ("composite_fwd_kernel", "table_scatter_add_kernel")).items():
+        print(f"ptxas {entry}: {used}")
 
     rows = kernel_phase(dev)
+    if KERNELS_FROM:
+        print(json.dumps({"kernels_from": KERNELS_FROM, "ms": {
+            r["name"]: r["ms"] for r in rows}}))
+        return
     small_render_check(dev)
     launches = slice_phase(dev)
     track_launches = tracking_phase(dev)

@@ -19,6 +19,14 @@ chunks every pixel enters saturated (transmittance < 1e-4), a warp's
 reduction when none of its pixels is alive, and a warp's walk once all its
 pixels are saturated. `test_bwd_saturated_chunks` holds those skips
 against the plain version on a table built to reach them.
+
+K1 stops a dead pair after its geometry, finds some dead without their exp
+(by a per-slot threshold on the exponent), stages only the rows up to a
+tile's count, and stops at the count. `test_fwd_skip_edges` holds it on a
+table built to reach those edges (`skip_edge_table`), alpha within a few
+ulp of 1/255 included. K4 adds with vector atomics:
+`test_scatter_add_repeated_ids` holds it with up to 8 slots on one row,
+empty slots and rows that no slot touches (exactly 0).
 """
 
 import numpy as np
@@ -99,6 +107,76 @@ def saturating_table(K=128, seed=5):
     table[:8, front, 9] = 1.0
     counts = rng.randint(K // 2 + 1, K, T).astype(np.int32)
     counts[0] = counts[-1] = K
+    return counts, table, tw
+
+
+def skip_edge_table(K=128, seed=7):
+    """counts, packed table and tile-grid width of a 48x64 image (3x4
+    tiles), drawn with numpy, at the edges of K1's dead-pair skips:
+
+    - tile 0: count 0;
+    - tile 1: every slot dead, full to the capacity: Gaussians far off the
+      tile, opacity 0, negative or below 1/255, and an indefinite conic
+      (power > 0; small enough that exp stays finite, as K2's plain
+      version needs);
+    - tile 2: its first 10 slots dead, then visible ones, count 77 (ends
+      inside a chunk of 32 and of 64);
+    - tile 3: its first 64 slots dead (a whole chunk), then visible ones,
+      count 100;
+    - tile 4: slots whose alpha at one pixel is within a few ulp of 1/255
+      on either side (power 0 and power near log(2/255)), count 90;
+    - tiles 5-11: visible Gaussians, counts 1, 31, 33, 63, 65, 97 and K.
+    """
+    rng = np.random.RandomState(seed)
+    th, tw = 3, 4
+    T = th * tw
+    x0 = (np.arange(T) % tw)[:, None] * 16.0
+    y0 = (np.arange(T) // tw)[:, None] * 16.0
+    ang = rng.uniform(0, np.pi, (T, K))
+    s1, s2 = rng.uniform(1.5, 6, (2, T, K))
+    c, s = np.cos(ang), np.sin(ang)
+    table = np.zeros((T, K, 16), np.float32)
+    table[..., 0] = x0 + rng.uniform(-8, 24, (T, K))
+    table[..., 1] = y0 + rng.uniform(-8, 24, (T, K))
+    table[..., 2] = c * c / s1 ** 2 + s * s / s2 ** 2
+    table[..., 3] = c * s * (1 / s1 ** 2 - 1 / s2 ** 2)
+    table[..., 4] = s * s / s1 ** 2 + c * c / s2 ** 2
+    table[..., 5:8] = rng.uniform(0, 1, (T, K, 3))
+    table[..., 8] = rng.uniform(0.05, 0.9, (T, K))
+    table[..., 9] = rng.uniform(2, 4, (T, K))
+
+    def dead(t, sl):
+        n = len(range(K)[sl])
+        kind = np.arange(n) % 5
+        far = kind == 0                       # far off the tile
+        table[t, sl, 0] = np.where(far, x0[t] + 400.0, table[t, sl, 0])
+        table[t, sl, 8] = np.select(
+            [kind == 1, kind == 2, kind == 3],
+            [0.0, -0.5, 0.5 / 255], table[t, sl, 8])
+        indef = kind == 4                     # 0 < power < 11 off the centre
+        table[t, sl, 2] = np.where(indef, -0.01, table[t, sl, 2])
+        table[t, sl, 4] = np.where(indef, -0.01, table[t, sl, 4])
+        table[t, sl, 3] = np.where(indef, 0.0, table[t, sl, 3])
+
+    dead(1, slice(0, K))
+    dead(2, slice(0, 10))
+    dead(3, slice(0, 64))
+    # tile 4: round Gaussians (a = c = 1, b = 0) centred on pixel (px + d,
+    # py), so that alpha there is op * exp(-d^2 / 2): at d = 0 op itself,
+    # at d = 3.1139 about op * 2 / 255; op steps by ~1 ulp of alpha
+    d = np.float32(3.1139)
+    e = np.exp(np.float32(-0.5) * (d * d), dtype=np.float32)
+    for k in range(90):
+        j = k % 9 - 4                         # -4 .. 4
+        at_centre = (k // 9) % 2 == 0
+        table[4, k, 0] = x0[4, 0] + k % 16 + (0.0 if at_centre else d)
+        table[4, k, 1] = y0[4, 0] + (k // 16) * 2
+        table[4, k, 2] = table[4, k, 4] = 1.0
+        table[4, k, 3] = 0.0
+        base = np.float32(1 / 255) if at_centre else np.float32(1 / 255) / e
+        table[4, k, 8] = base * np.float32(1 + j * 6e-8)
+    counts = np.array([0, K, 77, 100, 90, 1, 31, 33, 63, 65, 97, K],
+                      np.int32)
     return counts, table, tw
 
 
@@ -190,6 +268,28 @@ def test_bwd_saturated_chunks(ck):
     assert bool((k_d[zero] == 0).all()) and bool((p_d[zero] == 0).all())
 
 
+@pytest.mark.parametrize("ck", [32, 64])
+def test_fwd_skip_edges(ck):
+    """K1 (and K2 behind it) on the table of `skip_edge_table`: the same
+    tolerances as above, and the tiles with no slot alive composite to the
+    background with tfin = 1."""
+    _need_card()
+    dev = torch.device("cuda")
+    counts_np, table_np, tw = skip_edge_table()
+    counts = torch.as_tensor(counts_np, device=dev)
+    table = torch.as_tensor(table_np, device=dev)
+    _composite_vs_plain(counts, table, tw, ck)
+    tid = torch.arange(table.shape[0], dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
+    color, depth, alpha, tfin, tentry = cc.composite_fwd(counts, tid, table,
+                                                         bg, tw, ck)
+    torch.cuda.synchronize()
+    for t in (0, 1):
+        assert bool((tfin[t] == 1).all()) and bool((tentry[t] == 1).all())
+        assert bool((alpha[t] == 0).all()) and bool((depth[t] == 0).all())
+        assert bool((color[t] == bg).all())
+
+
 def test_render_fused_gradients_on_card():
     """The autograd wiring on the card: render_fused (kernels) against
     render_reference (the per-pixel oracle), forward and gradients."""
@@ -249,6 +349,39 @@ def test_table_kernels_match_plain(n, h, w, capacity):
         assert _max_rel(k, p) < 1e-5
     assert (tg.table_gather.launches, tg.table_scatter_add.launches) == (
         before[0] + 1, before[1] + 2)
+
+
+def repeated_ids(T=64, K=128, n_rows=2000, seed=11):
+    """A (T, K) id table drawn with numpy: each row below n_rows // 2 in 1
+    to 8 random slots, the other slots empty (-1; about 45% of them), the
+    rows n_rows // 2 and above in none."""
+    rng = np.random.RandomState(seed)
+    slots = rng.permutation(T * K)
+    reps = rng.randint(1, 9, n_rows // 2)
+    ids = np.repeat(np.arange(n_rows // 2), reps)
+    assert len(ids) < T * K
+    flat = np.full(T * K, -1, np.int32)
+    flat[slots[:len(ids)]] = ids
+    return flat.reshape(T, K), n_rows
+
+
+def test_scatter_add_repeated_ids():
+    """K4 against its plain version with up to 8 slots on one row, empty
+    slots with nonzero cotangents, and untouched rows exactly 0."""
+    _need_card()
+    dev = torch.device("cuda")
+    ids_np, n_rows = repeated_ids()
+    ids = torch.as_tensor(ids_np, device=dev)
+    g = torch.randn(ids.shape + (16,), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    k = tg.table_scatter_add(g, ids, n_rows)
+    p = tg.table_scatter_add_plain(g, ids, n_rows)
+    torch.cuda.synchronize()
+    assert _max_rel(k, p) < 1e-5
+    used = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    used[ids[ids >= 0].long()] = True
+    assert int(used.sum()) == n_rows // 2
+    assert bool((k[~used] == 0).all()) and bool((k[used] != 0).any())
 
 
 def test_table_kernels_check_inputs():

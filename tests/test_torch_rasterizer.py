@@ -32,7 +32,7 @@ from wildgs_slam_tpu_torch.ops import sh as tsh
 from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as tcc
-from test_torch_kernels_gpu import saturating_table
+from test_torch_kernels_gpu import saturating_table, skip_edge_table
 
 torch.set_num_threads(1)
 H, W = 48, 64
@@ -257,6 +257,35 @@ def test_composite_bwd_saturated_chunks_vs_pallas(ck):
     rows = np.repeat(sat, ck, axis=1)                       # (T, K)
     assert np.all(dattrs[rows] == 0) and np.all(jgrad[rows] == 0)
     assert np.abs(dattrs[~rows]).max() > 0
+
+
+@pytest.mark.parametrize("ck", [8, 32])
+def test_composite_fwd_skip_edges_vs_pallas(ck):
+    """K1's plain version against the Pallas forward on the table of
+    `skip_edge_table` (a tile with count 0, a tile whose every slot is dead,
+    tiles whose first slots or first chunk are dead, alpha within a few ulp
+    of 1/255, counts that end inside a chunk): the semantics the CUDA
+    kernel's dead-pair skips rely on. Pixels that no slot reaches keep
+    tfin = 1 and composite to the background in both."""
+    counts, table, tw = skip_edge_table()
+    n_t = table.shape[0]
+    bg = np.array([0.1, 0.5, 0.9], np.float32)
+    jout = jpc.composite_tiles_pallas(tw, ck, True, jnp.asarray(counts),
+                                      jnp.asarray(table), jnp.asarray(bg))
+    tid = torch.arange(n_t, dtype=torch.int32)
+    color, depth, alpha, tfin, tentry = tcc.composite_fwd_plain(
+        T(counts, torch.int32), tid, T(table), T(bg), tw, ck)
+    np.testing.assert_allclose(color, jout.color, atol=1e-5)
+    np.testing.assert_allclose(depth, jout.depth, atol=1e-4)
+    np.testing.assert_allclose(alpha, jout.alpha, atol=1e-5)
+    np.testing.assert_allclose(tfin, jout.tfin, atol=1e-5)
+    untouched = np.asarray(jout.alpha) == 0                 # (T, P)
+    assert untouched[:2].all() and untouched[2:].any()
+    assert np.all(np.asarray(tfin)[untouched] == 1)
+    assert np.all(np.asarray(jout.tfin)[untouched] == 1)
+    np.testing.assert_array_equal(np.asarray(color)[:2],
+                                  np.broadcast_to(bg, (2, 256, 3)))
+    assert np.asarray(alpha)[2:].max() > 0.5
 
 
 def _loss_and_grads(renderer, scene, torch_side, **kw):

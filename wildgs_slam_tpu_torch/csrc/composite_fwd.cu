@@ -12,36 +12,103 @@
 // `tentry` (the transmittance entering each chunk) is written for every
 // chunk, skipped ones included, so the backward never re-runs the prefix.
 //
-// Design: one block per 16x16 tile, one thread per pixel. Each chunk of `ck`
-// packed (16-float) rows is staged in shared memory with float4 loads, and
-// each thread walks it sequentially. The block leaves the chunk loop's work
-// once no pixel of the tile has T >= 1e-4 (it still writes `tentry`).
+// Bound on the H100: the operations. Every live (slot, pixel) pair of an open
+// chunk needs its geometry (~15 fp32 operations with the exp), and only the
+// pairs that are alive (12% on the mapping table) need the blend (~15 more),
+// against 64 bytes of attributes per slot shared by 256 pixels: 0.0127 ms on
+// the mapping table (T=768, K=512), by the card's fp32 rate, not its memory.
 //
-// Bound on the H100: the operations. Per live (slot, pixel) pair it does
-// ~30 fp32 operations and one exp, against ~64 bytes of attributes per slot
-// shared by 256 pixels, so the card's fp32 rate and not its memory is the
-// limit. The source is compiled with --fmad=false so that it rounds op by op
-// as its plain PyTorch version does. Later work: tensor-core (`wgmma`)
-// formulations of the per-chunk sums, TMA staging of the chunk rows, more
-// tiles per block for occupancy, and atomics to fuse per-Gaussian counts
-// (the covisibility render's n_touched) into this pass.
+// Design: one block per 16x16 tile, one thread per pixel, walking the tile's
+// chunks of `ck` packed (16-float) rows front to back.
+//  - A dead pair stops right after its geometry: it does no division, no
+//    transmittance update and no sums. That is exact on finite tables: a
+//    dead slot has one_m = 1 and w = 0, so t_in, t_after and the sums stay
+//    bit for bit as they were, and the T_fin candidate it would submit is
+//    the t_after that the nearest earlier slot that is not dead submitted
+//    already (or 1.0, which the first slot that is not dead undercuts, and
+//    which is T_fin anyway when every slot is dead). A pair past saturation
+//    (t_after < 1e-4) keeps its transmittance product and adds no sums.
+//  - Pairs whose exponent lies below log(ALPHA_MIN / op) by more than
+//    EXP_SKIP_MARGIN are dead without their exp: op e^power < 1/255 holds
+//    with a margin of 1e-3 relative, where expf, logf and the division err
+//    by a few 1e-7 relative (logf's absolute error below 1e-5 for any float
+//    threshold), so no pair that the plain version finds alive is skipped.
+//    The thresholds (one logf per slot) are computed by the block once per
+//    chunk, after the rows land.
+//  - Shared-memory reads per pair: mx, my, a, b as one float4, c and the
+//    threshold as words; (op, depth) as one float2 only past the threshold
+//    test, and (c, r, g, b) as one float4 only for a pair that adds weight.
+//  - Rows are staged by one thread with `cp.async.bulk` (a 1-D bulk copy,
+//    no tensor map) completing on an mbarrier, into two 4 KB buffers: chunk
+//    c+1 is in flight while chunk c is walked. A chunk is copied only up to
+//    the tile's count, and the slot loop of the last chunk ends there.
+//    Staging by every thread, then a barrier, measured slower with the
+//    exponent test (and faster without it; PERF.md, Findings).
+//  - The block stops walking once no pixel of the tile has T >= 1e-4 (it
+//    still writes `tentry`); a prefetched chunk it does not open is waited
+//    for before the block exits and never read.
+//  - ptxas gives it 39 registers and 8.3 KB of shared memory, so 6 blocks
+//    fit on an SM and the mapping table's 768 tiles run in one wave.
+// The source is compiled with --fmad=false so that it rounds op by op as its
+// plain PyTorch version does.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int TILE = 16;
 constexpr int P = TILE * TILE;
 constexpr int ATTR_F = 16;
+constexpr int VEC = ATTR_F / 4;          // float4 per packed row
 constexpr int MAX_CK = 64;
+constexpr int ROW_BYTES = ATTR_F * 4;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
 constexpr float ONE_M_MIN = 0.01f;
+constexpr float EXP_SKIP_MARGIN = 1e-3f;
 
-// packed lanes: mx, my, conic a, b, c, r, g, b, opacity, depth, 6 pad
-constexpr int A_MX = 0, A_MY = 1, A_CA = 2, A_CB = 3, A_CC = 4;
-constexpr int A_R = 5, A_G = 6, A_B = 7, A_OP = 8, A_D = 9;
+// packed row as float4s: (mx, my, conic a, b), (conic c, r, g, b),
+// (opacity, depth, pad, pad), (pad x 4)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// One thread: arm `bar` for `bytes` and start the copy global -> shared.
+// `bytes` is a multiple of 16 and both addresses are 16-byte aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
 __global__ void __launch_bounds__(P) composite_fwd_kernel(
     const int* __restrict__ counts, const int* __restrict__ tile_ids,
@@ -49,57 +116,79 @@ __global__ void __launch_bounds__(P) composite_fwd_kernel(
     float* __restrict__ color, float* __restrict__ depth,
     float* __restrict__ alpha_out, float* __restrict__ tfin,
     float* __restrict__ tentry, int K, int ck, int tw) {
-  __shared__ float4 blk4[MAX_CK * ATTR_F / 4];
-  const float* blk = reinterpret_cast<const float*>(blk4);
+  __shared__ __align__(16) float4 rows[2][MAX_CK * VEC];
+  __shared__ float thr[MAX_CK];
+  __shared__ __align__(8) uint64_t bars[2];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int count = counts[t];
+  const int count = min(counts[t], K);   // a count past K reads K slots
   const int tid = tile_ids[t];
   const float px = (float)((tid % tw) * TILE + p % TILE);
   const float py = (float)((tid / tw) * TILE + p / TILE);
   const int n_chunks = K / ck;
-  const int vec_per_chunk = ck * ATTR_F / 4;
-  const float4* src4 =
-      reinterpret_cast<const float4*>(attrs + (size_t)t * K * ATTR_F);
+  const float* tile_rows = attrs + (size_t)t * K * ATTR_F;
+  float* tentry_t = tentry + (size_t)t * n_chunks * P + p;
+
+  // chunk c's rows up to the count, into buffer c % 2 (thread 0 only)
+  auto stage = [&](int c) {
+    const int n = min(ck, count - c * ck);
+    bulk_load(rows[c & 1], tile_rows + (size_t)c * ck * ATTR_F,
+              (uint32_t)(n * ROW_BYTES), &bars[c & 1]);
+  };
+  if (p == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (count > 0) stage(0);
+  }
 
   float T = 1.f, Tc = INFINITY;
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, acc_a = 0.f;
 
-  for (int c = 0; c < n_chunks; ++c) {
-    tentry[((size_t)t * n_chunks + c) * P + p] = T;
-    // block-wide: doubles as the barrier that protects `blk` from being
-    // overwritten while another thread still reads the previous chunk
+  int c = 0;
+  for (; c < n_chunks; ++c) {
+    tentry_t[(size_t)c * P] = T;
+    // block-wide: every thread has left chunk c-1, so buffer (c+1) % 2 and
+    // `thr` are free; uniform over the block
     const int open = __syncthreads_or(T >= T_EPS);
-    if (c * ck >= count || !open) continue;  // uniform over the block
-
-    for (int i = p; i < vec_per_chunk; i += P)
-      blk4[i] = src4[(size_t)c * vec_per_chunk + i];
+    if (c * ck >= count || !open) break;
+    const int n = min(ck, count - c * ck);
+    const float4* blk = rows[c & 1];
+    if (p == 0 && (c + 1) * ck < count) stage(c + 1);
+    mbar_wait(&bars[c & 1], (c >> 1) & 1);
+    if (p < n) {
+      const float op = reinterpret_cast<const float*>(blk + p * VEC + 2)[0];
+      // op <= 0: every pair dead; a NaN op skips nothing
+      thr[p] = op <= 0.f ? INFINITY : logf(ALPHA_MIN / op) - EXP_SKIP_MARGIN;
+    }
     __syncthreads();
 
     float t_in = 1.f, t_after = T;
     float s_r = 0.f, s_g = 0.f, s_b = 0.f, s_d = 0.f, s_a = 0.f;
-    for (int k = 0; k < ck; ++k) {
-      const float* g = blk + k * ATTR_F;
-      const float dx = g[A_MX] - px;
-      const float dy = g[A_MY] - py;
+    for (int k = 0; k < n; ++k) {
+      const float4 g0 = blk[k * VEC];        // mx, my, a, b
+      const float cc = reinterpret_cast<const float*>(blk + k * VEC + 1)[0];
+      const float dx = g0.x - px;
+      const float dy = g0.y - py;
       const float power =
-          -0.5f * (g[A_CA] * dx * dx + g[A_CC] * dy * dy) - g[A_CB] * dx * dy;
-      const float raw = g[A_OP] * expf(power);
-      float a = fminf(0.99f, raw);
-      if (power > 0.f || a < ALPHA_MIN || c * ck + k >= count) a = 0.f;
+          -0.5f * (g0.z * dx * dx + cc * dy * dy) - g0.w * dx * dy;
+      if (power < thr[k]) continue;                         // dead
+      const float2 g2 = reinterpret_cast<const float2*>(blk + k * VEC + 2)[0];
+      const float a = fminf(0.99f, g2.x * expf(power));
+      if (power > 0.f || a < ALPHA_MIN) continue;           // dead
       const float one_m = fmaxf(1.f - a, ONE_M_MIN);
       t_in = t_in * one_m;
       t_after = T * t_in;
-      const float t_before = t_after / one_m;
-      const bool contrib = t_after >= T_EPS;
-      const float w = a * t_before * (contrib ? 1.f : 0.f);
-      s_r += w * g[A_R];
-      s_g += w * g[A_G];
-      s_b += w * g[A_B];
-      s_d += w * g[A_D];
+      if (!(t_after >= T_EPS)) continue;                    // no weight
+      const float4 g1 = blk[k * VEC + 1];    // c, r, g, b
+      const float w = a * (t_after / one_m);
+      s_r += w * g1.y;
+      s_g += w * g1.z;
+      s_b += w * g1.w;
+      s_d += w * g2.y;
       s_a += w;
-      if (contrib) Tc = fminf(Tc, t_after);
+      Tc = fminf(Tc, t_after);
     }
     acc_r += s_r;
     acc_g += s_g;
@@ -108,6 +197,11 @@ __global__ void __launch_bounds__(P) composite_fwd_kernel(
     acc_a += s_a;
     T = t_after;
   }
+  // the chunks left unopened enter with the last T
+  for (int c2 = c + 1; c2 < n_chunks; ++c2) tentry_t[(size_t)c2 * P] = T;
+  // a chunk prefetched but not opened: its copy lands before the block exits
+  if (p == 0 && c < n_chunks && c * ck < count)
+    mbar_wait(&bars[c & 1], (c >> 1) & 1);
 
   const float Tf = isinf(Tc) ? T : Tc;
   const size_t o = (size_t)t * P + p;

@@ -16,18 +16,24 @@
 // any g. Clamping -1 to row 0 instead (as `index_add_` on the clamped ids
 // does) piles every empty slot's atomics onto one 64-byte row.
 //
-// Design: one thread per (slot, 4-float lane), 16-byte float4 loads and
-// stores, so neighbouring threads touch neighbouring addresses of a row and a
-// warp moves 8 whole rows. K4 adds with four scalar atomicAdds per thread
-// (unused results compile to `red` reductions); the zero fill is a
-// cudaMemsetAsync on the same stream.
-//
 // Bound on the H100: bytes. Neither kernel does arithmetic beyond the adds,
 // so the least time is the bytes moved over 3.35 TB/s: K3 reads the live
-// attribute rows and the ids and writes T*K*64 bytes; K4 reads g and the ids
-// and writes N*64 bytes twice (the fill, then the sums). Later work: sort the
-// slots by id (or aggregate equal ids inside a warp) so that K4 issues one
-// atomic per distinct row, and fuse K4 into K2's epilogue.
+// attribute rows and the ids and writes T*K*64 bytes; K4 reads the ids and
+// the live slots' cotangents and writes N*64 bytes (the fill and the adds
+// write the same rows; the bound counts them once).
+//
+// Design. K3: one thread per (slot, 4-float lane), 16-byte float4 loads and
+// stores, so neighbouring threads touch neighbouring addresses of a row and a
+// warp moves 8 whole rows. K4: one thread per (slot, lane) as well; it reads
+// its slot's id, exits on an empty slot before touching g, and adds its
+// float4 with one 16-byte vector reduction (`atomicAdd(float4*, float4)`,
+// global memory, compute capability 9.x; its unused result compiles to
+// `REDG.E.ADD.F32x4`), a quarter of the L2 atomic operations of four scalar
+// adds. One thread per slot with four float4 loads and four reductions
+// measured slower (PERF.md, Findings); its loads stride 64 bytes across a
+// warp. The zero fill is a cudaMemsetAsync on the same stream. Later work:
+// aggregate equal ids inside a warp so that K4 makes one atomic per
+// distinct row, and fuse K4 into K2's epilogue.
 
 #include <cuda_runtime.h>
 
@@ -50,19 +56,12 @@ __global__ void __launch_bounds__(THREADS) table_gather_kernel(
 
 __global__ void __launch_bounds__(THREADS) table_scatter_add_kernel(
     const float4* __restrict__ g, const int* __restrict__ ids,
-    float* __restrict__ out, long long n_lanes) {
+    float4* __restrict__ out, long long n_lanes) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n_lanes) return;
-  const long long s = i / LANES;
-  const int id = ids[s];
+  const int id = ids[i / LANES];
   if (id < 0) return;
-  const int lane = (int)(i % LANES);
-  const float4 v = g[i];
-  float* row = out + (long long)id * ATTR_F + lane * 4;
-  atomicAdd(row + 0, v.x);
-  atomicAdd(row + 1, v.y);
-  atomicAdd(row + 2, v.z);
-  atomicAdd(row + 3, v.w);
+  atomicAdd(out + (long long)id * LANES + (int)(i % LANES), g[i]);
 }
 
 int blocks_for(long long n_lanes) {
@@ -95,7 +94,8 @@ extern "C" int table_scatter_add(const float* g, const int* ids, float* out,
   if (n_lanes > 0) {
     table_scatter_add_kernel<<<blocks_for(n_lanes), THREADS, 0,
                                (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(g), ids, out, n_lanes);
+        reinterpret_cast<const float4*>(g), ids,
+        reinterpret_cast<float4*>(out), n_lanes);
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,10 @@ of each table row:
 
 - K1 ``composite_fwd`` (``csrc/composite_fwd.cu``, replaces ``_fwd_kernel``)
   composites each tile front to back in chunks of ``ck`` and also writes
-  ``tentry``, the transmittance entering each chunk.
+  ``tentry``, the transmittance entering each chunk. One block per tile
+  stages the chunk rows by asynchronous bulk copies (two buffers), and a
+  dead pair stops after its geometry (some before their exp, by a per-slot
+  threshold on the exponent).
 - K2 ``composite_bwd`` (``csrc/composite_bwd.cu``, replaces ``_bwd_kernel``)
   writes per-slot gradients (T, K, 16) in two CUDA kernels on a (tile,
   chunk) grid: each chunk's per-pixel total of w g into a (T, K // ck, 256)

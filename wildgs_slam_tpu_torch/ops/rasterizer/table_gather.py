@@ -11,7 +11,9 @@ the ``_gather_rows_mm`` backward):
   attrs[max(ids[t, k], 0)]`` for attrs (N, 16) f32 and ids (T, K) int32;
 - K4 ``table_scatter_add``: ``out = zeros(N, 16)``, then ``out[ids[t, k]]
   += g[t, k]`` for every slot whose id is >= 0 (empty slots, id -1, are
-  skipped; their cotangents are zero on the mapping path).
+  skipped; their cotangents are zero on the mapping path). Each 16-byte
+  quarter of a slot's row is added with one vector atomic, so ``g`` and
+  ``out`` must be 16-byte aligned (checked here).
 
 ``table_gather_plain`` / ``table_scatter_add_plain`` (``index_select`` and
 a masked ``index_add_``) compute the same functions. A wrapper takes its
@@ -85,6 +87,7 @@ def table_scatter_add(g, ids, n_rows):
     _check("g", g, torch.float32, (T, K, ATTR_F), dev)
     lib = kernels.library()
     out = torch.empty(n_rows, ATTR_F, device=dev)
+    _check("out", out, torch.float32, (n_rows, ATTR_F), dev)
     with torch.cuda.device(dev):
         err = lib.table_scatter_add(_ptr(g), _ptr(ids), _ptr(out), T * K,
                                     n_rows, _stream(dev))
