@@ -32,9 +32,22 @@ Phases, each printing its own lines:
      PSNR by more than 10 dB over the seeded map's to above 35 dB and launch
      K1-K4 once per mapping step; then a
      run with the seeded random DROID weights to 8
-     frontend updates, with its times, memory and a torch.profiler summary;
-  7. one JSON line describing every kernel;
-  8. the card again, then the last line {"ok": true, "device": {...}}.
+     frontend updates, with its times, memory and a torch.profiler summary,
+     and one Backend.dense_ba(2) on its 20 keyframes (global BA with the
+     on-the-fly correlation at full width: ms per update_lowmem step, peak
+     memory);
+  7. the whole system through SLAM.run() at the same widths on 48 frames of
+     the tracking scene at half its motion per frame, every frame a
+     keyframe, under the oracle (loop
+     closure, online global BA every 20 keyframes, final global BA, final
+     map refinement, the trajectory filler and the render-based pose
+     refinement of every frame, fast_mode off); depth cut (printed). Gates:
+     keyframe ATE < 1 cm and full ATE <= max(1.5 x its fast_mode value,
+     1 cm), both read back from the metrics files terminate wrote; the
+     refinement ran once per frame; the final map's keyframe PSNR >= 16 dB;
+     K1-K4 each launched once per render_fused call on the path;
+  8. one JSON line describing every kernel;
+  9. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -75,11 +88,13 @@ from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as tg  # noqa
 from wildgs_slam_tpu_torch.slam import gaussian_map as gm  # noqa: E402
 from wildgs_slam_tpu_torch.slam import keyframe_store as kstore  # noqa: E402
 from wildgs_slam_tpu_torch.slam import system  # noqa: E402
+from wildgs_slam_tpu_torch.slam.backend import Backend  # noqa: E402
 from wildgs_slam_tpu_torch.slam.frontend import Frontend  # noqa: E402
 from wildgs_slam_tpu_torch.slam.mapper import Mapper  # noqa: E402
 from wildgs_slam_tpu_torch.slam.motion_filter import MotionFilter  # noqa
 from wildgs_slam_tpu_torch.slam.state import SlamState  # noqa: E402
-from wildgs_slam_tpu_torch.utils.eval_traj import ape_statistics  # noqa
+from wildgs_slam_tpu_torch.utils.eval_traj import (  # noqa: E402
+    ape_statistics, read_metric)
 from wildgs_slam_tpu_torch.utils.profiling import TIMER  # noqa: E402
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
@@ -110,6 +125,13 @@ PSNR_GAIN_MIN = 10.0     # dB, the handoff's mean keyframe PSNR must rise by
 PSNR_MIN = 35.0          # more than this, to above this
 ORACLE_FRAMES = 40       # frames each tracking run may take at most
 NETWORK_FRAMES = 400
+SYSTEM_FRAMES = 48       # frames of the system phase, every one a keyframe
+SYSTEM_STEP = TRACK_STEP / 2   # its motion per frame: frames 21 apart lie
+                               # 18 px apart, under loop_thresh (25), so
+                               # loop closure finds pairs and runs its BA
+SYSTEM_CUTS = {"init_itr_num": 150, "mapping_itr_num": 40,
+               "final_refine_iters": 600}   # depth only
+SYSTEM_PSNR_MIN = 16.0   # dB, the bar of tests/test_integrated_ate.py
 
 
 def card_line(query="name,power.limit") -> str:
@@ -906,6 +928,254 @@ def tracking_phase(dev):
             k += 1
     profile_window(more_frames, "tracking network (frames to the next "
                    "frontend update)")
+    network_dense_ba(rec, model, cfg, dev)
+    return launches
+
+
+def lowmem_steps(label):
+    """ms per update_lowmem step from the TIMER's track.lowmem.step phase
+    (each step ends in a device sync)."""
+    st = TIMER.stats.get("track.lowmem.step")
+    if st is None or st.count == 0:
+        raise AssertionError(f"{label}: no update_lowmem step ran")
+    print(f"{label}: {st.count} update_lowmem steps, {st.total / st.count * 1e3:.1f}"
+          f" ms per step (first {st.first * 1e3:.1f}, warm mean "
+          f"{st.warm_mean * 1e3:.1f}, min {st.min * 1e3:.1f}, max "
+          f"{st.max * 1e3:.1f})")
+
+
+def network_dense_ba(rec, model, cfg, dev):
+    """One Backend.dense_ba(2) on the network run's keyframes: the global
+    BA with the on-the-fly correlation (alt_corr) at full width."""
+    state = rec["state"]
+    train_frac = cfg["mapping"]["uncertainty_params"]["train_frac_fix"]
+    backend = Backend(state, model, cfg, uncertainty_update_fn=lambda: (
+        system.uncertainty_update(state, rec["mapper"].uncer_mlp,
+                                  train_frac)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    TIMER.reset()
+    t0 = time.perf_counter()
+    n, n_edges = backend.dense_ba(2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lowmem_steps("tracking network dense_ba(2)")
+    print(f"tracking network dense_ba(2): {n} keyframes, {n_edges} edges, "
+          f"{wall * 1e3:.1f} ms in all; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    p = state.store.poses[:n]
+    if not (n_edges > 0 and bool(torch.isfinite(p).all())):
+        raise AssertionError("network dense_ba: no edges or non-finite poses")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the whole system through SLAM.run()
+# ---------------------------------------------------------------------------
+
+class SceneStream:
+    """room_scene's frames as the stream SLAM reads: (index, image, None,
+    camera-to-world 4x4); depth_fn and feat_fn give each image's exact depth
+    and its DINO features."""
+
+    def __init__(self, intr, frames):
+        self.intrinsic = np.asarray(intr, np.float64)
+        self.frames = frames
+        self.by_id = {id(f[2]): f for f in frames}
+        self.poses = lie.se3_matrix(lie.se3_inv(torch.as_tensor(np.stack(
+            [f[0] for f in frames])))).numpy().astype(np.float64)
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return i, self.frames[i][2], None, self.poses[i]
+
+    def depth_fn(self, image):
+        return self.by_id[id(image)][1]
+
+    def feat_fn(self, image):
+        return self.by_id[id(image)][3]
+
+
+def system_phase(dev):
+    """SLAM.run() on the tracking scene, under the oracle; returns the
+    kernels' launches."""
+    n_frames, cuts = SYSTEM_FRAMES, SYSTEM_CUTS
+    cfg = load_config(CONFIG)
+    cfg["scene"] = "system_phase"
+    cfg["data"]["output"] = os.path.join(HERE, "build", "chip_smoke")
+    cfg["verbose"] = False
+    t = cfg["tracking"]
+    t["force_keyframe_every_n_frames"] = 1
+    t["motion_filter"]["thresh"] = 1e9
+    tr_cfg = cfg["mapping"]["Training"]
+    reduced = {k: f"{(cfg['mapping'] if k == 'final_refine_iters' else tr_cfg)[k]}"
+               f" -> {v}" for k, v in cuts.items()}
+    cfg["mapping"]["final_refine_iters"] = cuts["final_refine_iters"]
+    tr_cfg.update(init_itr_num=cuts["init_itr_num"],
+                  mapping_itr_num=cuts["mapping_itr_num"])
+    reduced["pose_refine_iters"] = f"{tr_cfg.get('pose_refine_iters', 100)} (not cut)"
+    reduced["frames"] = (f"{n_frames} of the tracking scene (seed 3) at half "
+                         f"its motion per frame ({SYSTEM_STEP} of the mapping "
+                         f"scene's), every one a keyframe "
+                         f"(force_keyframe_every_n_frames 1, motion filter "
+                         f"thresh 1e9, as tests/test_integrated_ate.py)")
+    reduced["oracle"] = ("gt_injection on the frontend's graph and the "
+                         "backend: ground-truth targets for the update "
+                         "operator; the trajectory filler runs the network")
+    reduced["DROID weights"] = "flax-style init from torch seed 0"
+    print("system reduced:", json.dumps(reduced))
+    print(f"system config: {cfg['cam']['H_out']}x{cfg['cam']['W_out']}, "
+          f"buffer {t['buffer']}, capacity "
+          f"{cfg['mapping']['gaussian_capacity']}, list capacity "
+          f"{cfg['mapping']['render_list_capacity']}, window "
+          f"{t['frontend']['window']}, max_factors "
+          f"{t['frontend']['max_factors']}, enable_loop "
+          f"{t['frontend']['enable_loop']}, enable_online_ba "
+          f"{t['frontend']['enable_online_ba']} (ba_freq "
+          f"{t['backend']['ba_freq']}), final_ba {t['backend']['final_ba']}, "
+          f"fast_mode {cfg['fast_mode']}, metric_depth_reg "
+          f"{t['backend']['metric_depth_reg']}, uncertainty "
+          f"{t['uncertainty_params']['activate']}")
+
+    (H, W), intr, frames = room_scene(cfg, n_frames, seed=3, step=SYSTEM_STEP)
+    stream = SceneStream(intr, frames)
+    model = droid_net.init_droid_net(torch.Generator().manual_seed(0),
+                                     device=dev)
+    slam = system.SLAM(cfg, stream, depth_fn=stream.depth_fn,
+                       feat_fn=stream.feat_fn, model=model, device=dev)
+    sh, sw = kstore.slice_hw(H, W)
+    poses_gt = torch.as_tensor(np.stack([f[0] for f in frames]), device=dev)
+    disps_gt = torch.as_tensor(np.stack([1.0 / f[1][sh, sw] for f in frames]),
+                               device=dev)
+
+    def gt_injection(store, counter):
+        ts = store.timestamp.long().clamp(0, n_frames - 1)
+        return poses_gt[ts], disps_gt[ts]
+    slam.frontend.graph.gt_injection = gt_injection
+    slam.backend.gt_injection = gt_injection
+
+    mapper = slam.mapper
+    loops = []
+    loop_ba = slam.backend.loop_ba
+
+    def counted_loop_ba(*a, **k):
+        out = loop_ba(*a, **k)
+        loops.append(out[1])
+        return out
+    slam.backend.loop_ba = counted_loop_ba
+    # a profiler window (device activity) over the loop's last frame:
+    # tracking, loop closure, the mapper's keyframe step; closed before
+    # terminate
+    from torch.profiler import ProfilerActivity, profile
+
+    marks = {}
+    window = profile(activities=[ProfilerActivity.CUDA])
+    track = slam.motion_filter.track
+
+    def windowed_track(tstamp, image):
+        if int(tstamp) == n_frames - 1:
+            torch.cuda.synchronize()
+            window.__enter__()
+            marks["window"] = time.perf_counter()
+        return track(tstamp, image)
+    slam.motion_filter.track = windowed_track
+    terminate = slam.terminate
+
+    def timed_terminate():
+        torch.cuda.synchronize()
+        marks["loop_end"] = time.perf_counter()
+        marks["loop_peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        window.__exit__(None, None, None)
+        terminate()
+    slam.terminate = timed_terminate
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    TIMER.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    slam.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = read_launches()
+    renders = mapper.fused_renders
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t_loop = marks["loop_end"] - t0
+
+    print(f"system: {n_frames} frames -> {slam.state.counter} keyframes; "
+          f"run {t_end - t0:.2f} s: frame loop {t_loop:.2f} s "
+          f"({t_loop / n_frames * 1e3:.1f} ms per frame), terminate "
+          f"{t_end - marks['loop_end']:.2f} s; peak device memory "
+          f"{marks['loop_peak']:.2f} GiB through the loop, {peak:.2f} GiB in "
+          f"all")
+    busy_us, dev_us, n_ops, _ = device_summary(window)
+    wall = marks["loop_end"] - marks["window"]
+    print(f"system loop profile (last frame): wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy_us / 1e3:.1f} ms ({busy_us / 1e6 / wall * 100:.1f}"
+          f"%), {n_ops} device ops (the profiler's own cost included)")
+    print("system phases:\n" + TIMER.report())
+    st = TIMER.stats.get("final.nonkf_pose_refine")
+    steps = mapper.refine_steps
+    print(f"system refinement: {mapper.refine_calls} calls, {steps} steps "
+          f"({steps / max(mapper.refine_calls, 1):.1f} per frame, at most "
+          f"{tr_cfg.get('pose_refine_iters', 100)}), {steps} host syncs "
+          f"(one per step), "
+          f"{st.total / max(steps, 1) * 1e3 if st else float('nan'):.2f} ms "
+          f"per step (the phase's time over its steps, the trajectory "
+          f"filler's features reused)")
+    lowmem_steps("system (oracle) update_lowmem")
+    print(f"system loop closure: {len(loops)} loop_ba calls, "
+          f"{sum(n > 0 for n in loops)} ran their BA (edges "
+          f"{min(loops, default=0)}-{max(loops, default=0)})")
+    print(f"system: render_fused calls {renders}; launches "
+          f"{json.dumps(launches)}")
+
+    out = os.path.join(cfg["data"]["output"], cfg["scene"], "traj")
+    metrics = {}
+    for name in ("kf_traj", "full_traj"):
+        path = os.path.join(out, f"{name}_metrics.txt")
+        if not os.path.exists(path):
+            raise AssertionError(f"terminate wrote no {path}")
+        metrics[name] = read_metric(path)
+    ply = os.path.join(cfg["data"]["output"], cfg["scene"], "final_gs.ply")
+    if not os.path.getsize(ply) > 0:
+        raise AssertionError(f"no map written to {ply}")
+    slam.cfg["fast_mode"] = True
+    fast = slam.full_traj_eval(os.path.join(out, "full_traj_fast"))["rmse"]
+    psnr = keyframe_psnr(mapper, frames)
+    print(f"system: keyframe ATE rmse {metrics['kf_traj'] * 100:.4f} cm, full "
+          f"ATE rmse {metrics['full_traj'] * 100:.4f} cm (fast_mode "
+          f"{fast * 100:.4f} cm); final map keyframe PSNR mean "
+          f"{np.mean(psnr):.2f} dB (min {np.min(psnr):.2f}, max "
+          f"{np.max(psnr):.2f}); {gm.num_alive(mapper.gaussians)} Gaussians")
+    print("system: final map PSNR per keyframe [dB]:",
+          json.dumps([round(x, 2) for x in psnr]))
+    if not metrics["kf_traj"] < ATE_MAX:
+        raise AssertionError(f"system keyframe ATE {metrics['kf_traj']} m >= "
+                             f"{ATE_MAX} m")
+    if not metrics["full_traj"] <= max(1.5 * fast, ATE_MAX):
+        raise AssertionError(f"system full ATE {metrics['full_traj']} m > "
+                             f"max(1.5 x {fast}, {ATE_MAX}) m")
+    if mapper.refine_calls != n_frames:
+        raise AssertionError(f"refinement ran {mapper.refine_calls} times "
+                             f"for {n_frames} frames")
+    if not np.mean(psnr) >= SYSTEM_PSNR_MIN:
+        raise AssertionError(f"final map PSNR {np.mean(psnr):.2f} dB < "
+                             f"{SYSTEM_PSNR_MIN} dB")
+    if any(v != renders for v in launches.values()):
+        raise AssertionError(f"system launches {launches} != {renders} "
+                             f"render_fused calls")
+    poses = slam.state.store.poses
+
+    def refine_two():
+        for k in (n_frames - 2, n_frames - 1):
+            mapper.refine_pose_non_key_frame(
+                stream[k][1], poses[k].cpu().numpy(),
+                features=stream.feat_fn(stream[k][1]))
+    profile_window(refine_two, "system refinement (2 frames)")
     return launches
 
 
@@ -938,11 +1208,13 @@ def main():
     small_render_check(dev)
     launches = slice_phase(dev)
     track_launches = tracking_phase(dev)
+    system_launches = system_phase(dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = {"mapping": launches[row["name"]],
-                                   "tracking":
-                                   track_launches[row["name"]]}
+        row["launches_by_path"] = {
+            "mapping": launches[row["name"]],
+            "tracking": track_launches[row["name"]],
+            "system": system_launches[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

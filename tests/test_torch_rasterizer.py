@@ -351,3 +351,44 @@ def test_render_reference_matches_jax(scene):
     oj, gj = _loss_and_grads(jr.render_reference, scene, False)
     _compare(ot, gt_, oj, gj, 1e-5)
     np.testing.assert_array_equal(ot.n_touched, oj.n_touched)
+
+
+def test_projected_conics_keep_power_nonpositive():
+    """K2's domain (ROADMAP Queue 3): on the tile table that the port's own
+    projection and binning build, the Gaussian exponent is <= 0 at every
+    pixel of every live slot, so exp(power) never overflows there. The
+    scene mixes round and needle-thin Gaussians (scale ratios to 1000) at
+    depths 0.3-6 with random rotations; the projection's 0.3 px dilation
+    keeps every conic positive definite."""
+    from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as ttg
+
+    rng = np.random.RandomState(12)
+    n = 3000
+    means = np.concatenate([rng.uniform(-1.2, 1.2, (n, 2)),
+                            np.ones((n, 1))], -1) * rng.uniform(
+        0.3, 6.0, (n, 1))
+    scales = np.exp(rng.uniform(np.log(1e-4), np.log(0.1), (n, 3)))
+    rots = rng.normal(size=(n, 4))
+    rots /= np.linalg.norm(rots, axis=-1, keepdims=True)
+    proj = tr.project_gaussians(
+        T(means), T(scales), T(rots), T(rng.uniform(0.05, 1.0, n)),
+        T(rng.uniform(size=(n, 1, 3))), T([0, 0, 0, 0, 0, 0, 1]),
+        T([50.0, 50.0, W / 2, H / 2]), (H, W))
+    bins = tr.bin_gaussians(proj.mean2d, proj.radius, proj.depth, proj.valid,
+                            (H, W), capacity=512)
+    z = torch.zeros_like(proj.depth)
+    attrs = torch.stack([proj.mean2d[:, 0], proj.mean2d[:, 1],
+                         proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
+                         z, z, z, proj.opacity, proj.depth] + [z] * 6, 1)
+    table = ttg.table_gather_plain(attrs, bins.ids.to(torch.int32))
+    n_tiles, K, _ = table.shape
+    px, py = tcc.tile_pixel_coords(torch.arange(n_tiles, dtype=torch.int32),
+                                   -(-W // 16))
+    live = (torch.arange(K)[None, :] < bins.counts[:, None].long())
+    assert int(live.sum()) > 1000
+    dx = table[..., tcc.A_MX, None] - px[:, None, :]
+    dy = table[..., tcc.A_MY, None] - py[:, None, :]
+    power = (-0.5 * (table[..., tcc.A_CA, None] * dx * dx
+                     + table[..., tcc.A_CC, None] * dy * dy)
+             - table[..., tcc.A_CB, None] * dx * dy)
+    assert float(power[live].max()) <= 0.0

@@ -52,3 +52,8 @@ def load_config(path: str) -> Dict[str, Any]:
 
     update_recursive(cfg, cfg_special)
     return cfg
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    with open(path, "w") as f:
+        yaml.dump(cfg, f, default_flow_style=False, sort_keys=False)

@@ -202,6 +202,24 @@ def init_droid_net(generator: torch.Generator, device="cuda") -> DroidNet:
     return net.to(device).eval()
 
 
+HEADS = ("update.weight.2", "update.delta.2")   # trimmed to 2 channels
+
+
+@torch.no_grad()
+def load_droid_checkpoint(path: str, device="cuda") -> DroidNet:
+    """A DroidNet from upstream's ``droid.pth``: the ``module.`` prefix
+    stripped, the weight and delta heads trimmed to their first 2 output
+    channels (as upstream's slam.py and the JAX loader do)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k.replace("module.", ""): v.float() for k, v in state.items()}
+    for head in HEADS:
+        for leaf in ("weight", "bias"):
+            state[f"{head}.{leaf}"] = state[f"{head}.{leaf}"][:2]
+    net = DroidNet()
+    net.load_state_dict(state)
+    return net.to(device).eval()
+
+
 def context_split(context):
     """cnet output (N, H, W, 256) -> (net, inp) = (tanh, relu) halves."""
     net, inp = context.split(context.shape[-1] // 2, dim=-1)

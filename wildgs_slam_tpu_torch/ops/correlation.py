@@ -133,3 +133,34 @@ def fmap_pyramid(fmaps: torch.Tensor, num_levels: int = NUM_LEVELS) -> list:
             dim=(2, 4))
         pyr.append(x)
     return pyr
+
+
+ALT_SUB = 8   # edges per transient correlation volume in alt_corr
+
+
+def alt_corr(pyramid: list, coords: torch.Tensor, ii: torch.Tensor,
+             jj: torch.Tensor, radius: int = RADIUS) -> torch.Tensor:
+    """Correlation features without stored volumes (global BA): for each
+    edge the level-0 features of frame ii and the level-l features of frame
+    jj form a transient volume (one ``torch.bmm``), sampled by the (2r+1)^2
+    bilinear window as ``corr_lookup`` does; ALT_SUB edges at a time bound
+    the volume. `pyramid` is ``fmap_pyramid``'s output (frames indexed
+    absolutely by ii, jj), coords (E, H, W, 2) at level 0.
+    Returns (E, H, W, L (2r+1)^2)."""
+    E, H, W, _ = coords.shape
+    c = coords.reshape(E, H * W, 2)
+    out = torch.empty(E, H * W, len(pyramid) * (2 * radius + 1) ** 2,
+                      dtype=torch.float32, device=coords.device)
+    for s in range(0, E, ALT_SUB):
+        sl = slice(s, s + ALT_SUB)
+        n = ii[sl].shape[0]
+        f1 = pyramid[0][ii[sl]].reshape(n, H * W, -1)
+        outs = []
+        for lvl, fm in enumerate(pyramid):
+            h2, w2, C = fm.shape[1:]
+            f2 = fm[jj[sl]].reshape(n, h2 * w2, C)
+            vol = torch.bmm(f1, f2.transpose(1, 2)).reshape(n, H * W, h2, w2)
+            outs.append(_bilinear_window_gather(vol, c[sl] / (2 ** lvl),
+                                                radius))
+        out[sl] = torch.cat(outs, dim=-1)
+    return out.reshape(E, H, W, -1)

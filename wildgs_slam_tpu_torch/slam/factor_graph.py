@@ -1,5 +1,5 @@
-"""Factor graph of the tracking frontend; torch port of the frontend's
-subset of ``wildgs_slam_tpu/slam/factor_graph.py``.
+"""Factor graph of the tracker; torch port of
+``wildgs_slam_tpu/slam/factor_graph.py``.
 
 Edge topology (ii, jj, age, the inactive and bad lists, the proximity
 proposal with its NMS) lives on the host as numpy, as there. Edge state
@@ -19,6 +19,16 @@ selected inactive edges; stop early once the mean |delta| is at most
 ``gt_injection`` set, the update operator is swapped for ground-truth
 reprojection targets (the oracle used by the trajectory-accuracy gates)
 and every other stage stays.
+
+A graph built with ``corr_impl="alt"`` (the backend's) stores no volumes:
+``update_lowmem`` runs global BA with on-the-fly correlation
+(``correlation.alt_corr``). Per step it builds the feature pyramid, runs
+the update operator over the edges in chunks of 8 source frames (in
+ascending order, each against the same poses), writes back their GRU
+states, targets, weights and damping rows, then solves one full-window BA
+(lm 1e-5, ep 1e-2). The backend's graphs are seeded by
+``add_backend_proximity_factors`` and, for loop closure, by
+``adopt_edges`` from the frontend's graph.
 """
 
 from __future__ import annotations
@@ -28,11 +38,14 @@ import torch
 
 from ..models import droid_net
 from ..ops import correlation, dba, projective
+from ..utils.profiling import TIMER
 from . import keyframe_store as kstore
 
 EP_DAMP = 1e-7
 ORACLE_UP_FRAMES = 96   # frames below t1 whose disps_up the oracle refreshes
 CORR_CHUNK = 8          # edges per correlation-volume build
+LOWMEM_CHUNK = 8        # source frames per update-operator call in
+                        # update_lowmem
 DIST_CHUNK = 1024       # frame pairs per distance evaluation
 CORR_DTYPE = torch.bfloat16   # storage of the correlation volumes
 
@@ -42,10 +55,14 @@ def _t(x, device):
 
 
 class FactorGraph:
-    def __init__(self, state, model: droid_net.DroidNet, max_factors=-1):
+    def __init__(self, state, model: droid_net.DroidNet, max_factors=-1,
+                 corr_impl="volume"):
+        if corr_impl not in ("volume", "alt"):
+            raise ValueError(f"corr_impl {corr_impl!r}: 'volume' or 'alt'")
         self.state = state
         self.model = model
         self.max_factors = max_factors
+        self.corr_impl = corr_impl
         # oracle hook: callable(store, counter) -> (poses_gt (B, 7),
         # disps_gt (B, h, w)); set, it replaces the update operator
         self.gt_injection = None
@@ -134,8 +151,9 @@ class FactorGraph:
         store = self.state.store
         E0 = self.E
         it, jt = _t(ii, self.device), _t(jj, self.device)
-        self._reserve_corr(E0 + ii.shape[0])
-        self._store_corr(it, jt, E0)
+        if self.corr_impl == "volume":
+            self._reserve_corr(E0 + ii.shape[0])
+            self._store_corr(it, jt, E0)
         target, _ = kstore.reproject(store, it, jt)
         self.net = torch.cat([self.net, store.nets[it]])
         self.inp = torch.cat([self.inp, store.inps[it]])
@@ -228,8 +246,9 @@ class FactorGraph:
     def update_n(self, n, t0=None, t1=None, itrs=2, use_inactive=False,
                  motion_only=False, eps=0.0):
         """Up to `n` graph updates, stopping once the mean |delta| of an
-        iteration is at most `eps` (0: always n). Returns (iterations run,
-        mean |delta| of the last one)."""
+        iteration is at most `eps` (0: always n). The edges age by `n`
+        whatever ran. Returns (iterations run, mean |delta| of the last
+        one)."""
         if self.E == 0:
             return None
         if self.gt_injection is not None:
@@ -274,7 +293,7 @@ class FactorGraph:
                 break
         store.disps_up[frames] = droid_net.upsample_disp(store.disps[frames],
                                                          upmask)
-        self.age += n_done
+        self.age += n      # by the steps requested, as the JAX graph
         return n_done, dmean
 
     def _oracle_targets(self, ii, jj):
@@ -319,6 +338,86 @@ class FactorGraph:
             store.disps[frames], store.disps_up.shape[-2:])
         self.age += n_done
         return n_done, torch.zeros((), device=self.device)
+
+    # ------------------------------------------------------------------
+    # global BA (the backend's graphs)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def update_lowmem(self, t0=None, t1=None, itrs=2, steps=8):
+        """`steps` global-BA steps with on-the-fly correlation over the pose
+        window [t0, t1) (default [1, last frame of an edge])."""
+        if self.E == 0:
+            return
+        st = self.state
+        if t1 is None:
+            t1 = max(int(self.ii.max()), int(self.jj.max())) + 1
+        if t0 is None:
+            t0 = 1
+        ii_t, jj_t = _t(self.ii, self.device), _t(self.jj, self.device)
+        ba_kw = dict(iters=itrs, lm=1e-5, ep=1e-2,
+                     metric_depth_reg=st.metric_depth_reg,
+                     uncertainty_aware=st.uncertainty_aware)
+        if self.gt_injection is not None:
+            self.target, self.weight = self._oracle_targets(ii_t, jj_t)
+            eta = 0.2 * self.damping + EP_DAMP
+            for _ in range(steps):
+                with TIMER.phase("track.lowmem.step", sync=True):
+                    kstore.ba(st.store, self.target, self.weight, eta, ii_t,
+                              jj_t, t0, t1, **ba_kw)
+            return
+
+        # edge rows of each chunk of source frames, ascending (over the
+        # frames up to the last target frame, as the JAX graph)
+        chunks = []
+        for i0 in range(0, int(self.jj.max()) + 1, LOWMEM_CHUNK):
+            sel = np.where((self.ii >= i0) & (self.ii < i0 + LOWMEM_CHUNK))[0]
+            if len(sel):
+                chunks.append(_t(sel, self.device))
+        n_frames = max(t1, int(self.ii.max()) + 1, int(self.jj.max()) + 1)
+        for _ in range(steps):
+            with TIMER.phase("track.lowmem.step", sync=True):
+                self._lowmem_step(chunks, ii_t, jj_t, n_frames, t0, t1, ba_kw)
+
+    def _lowmem_step(self, chunks, ii_t, jj_t, n_frames, t0, t1, ba_kw):
+        """One step: the update operator over each chunk (alt_corr), then
+        the full-window BA."""
+        store = self.state.store
+        coords0 = projective.coords_grid(self.h, self.w, device=self.device)
+        fpyr = correlation.fmap_pyramid(store.fmaps[:n_frames])
+        for sel in chunks:
+            iic, jjc = ii_t[sel], jj_t[sel]
+            coords1, _ = projective.projective_transform(
+                store.poses, store.disps, store.intrinsics, iic, jjc)
+            motn = torch.clamp(torch.cat([coords1 - coords0,
+                                          self.target[sel] - coords1],
+                                         dim=-1), -64.0, 64.0)
+            corr = correlation.alt_corr(fpyr, coords1, iic, jjc)
+            net, delta, weight, frames, eta, _ = self.model.update(
+                self.net[sel], store.inps[iic], corr, motn, iic)
+            self.net[sel] = net
+            self.target[sel] = coords1 + delta
+            self.weight[sel] = weight
+            self.damping[frames] = eta
+        kstore.ba(store, self.target, self.weight,
+                  0.2 * self.damping + EP_DAMP, ii_t, jj_t, t0, t1, **ba_kw)
+
+    def clear_edges(self):
+        """Drop every live edge (and any volumes)."""
+        e = np.zeros(0, np.int64)
+        self.ii, self.jj, self.age = e, e.copy(), e.copy()
+        self._keep_rows(np.zeros(0, bool))
+        self.corr = None
+
+    def adopt_edges(self, other: "FactorGraph"):
+        """Take another graph's live edges with their GRU states, context
+        features, targets and weights, in its order (loop closure seeds its
+        graph with the frontend's); no volumes, as an alt graph needs
+        none."""
+        self.ii, self.jj, self.age = (other.ii.copy(), other.jj.copy(),
+                                      other.age.copy())
+        self.net, self.inp = other.net.clone(), other.inp.clone()
+        self.target, self.weight = other.target.clone(), other.weight.clone()
 
     # ------------------------------------------------------------------
     # edge proposal (host numpy, as the JAX package)
@@ -383,3 +482,63 @@ class FactorGraph:
         if es:
             ii_new, jj_new = np.array(es).T
             self.add_factors(ii_new, jj_new, remove)
+
+    def add_backend_proximity_factors(self, t_start, t_end, nms, radius,
+                                      thresh, max_factors, beta,
+                                      t_start_loop=None, loop=False):
+        """The backend's edge proposal over sources [t_start_loop, t_end) and
+        targets [t_start, t_end): the radius neighbourhood, then the nearest
+        pairs under `thresh` with a box NMS; with `loop`, each such pair
+        brings the pairs around it that are more than 20 frames apart.
+        Returns the live edge count, or 0 when nothing was added."""
+        if t_start_loop is None or not loop:
+            t_start_loop = t_start
+        ilen = t_end - t_start_loop
+        jlen = t_end - t_start
+        ii, jj = np.meshgrid(np.arange(t_start_loop, t_end),
+                             np.arange(t_start, t_end), indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        d = self._distance_matrix(ii, jj, beta)
+        rawd = d.copy().reshape(ilen, jlen)
+        d[ii - radius < jj] = np.inf
+        d[d > thresh] = np.inf
+        d = d.reshape(ilen, jlen)
+
+        es = []
+        for i in range(t_start_loop, t_end):
+            for j in range(max(i - radius - 1, 0), i):
+                es.append((i, j))
+                es.append((j, i))
+                d[i - t_start_loop, j - t_start] = np.inf
+        flat = d.reshape(-1)
+        order = np.argsort(flat)
+        order = order[np.sort(flat) <= thresh]
+
+        loop_edges = 0
+        for k in order.tolist():
+            di, dj = k // jlen, k % jlen
+            if d[di, dj] > thresh:
+                continue
+            if len(es) > max_factors:
+                break
+            i, j = int(ii[k]), int(jj[k])
+            if loop:
+                sub = [(si, sj)
+                       for si in range(max(i - 1, t_start_loop),
+                                       min(i + 2, t_end))
+                       for sj in range(max(j - 1, t_start), min(j + 2, t_end))
+                       if rawd[si - t_start_loop, sj - t_start] <= thresh
+                       and si != sj and si - sj > 20]
+                es += sub
+                loop_edges += len(sub)
+            else:
+                es.append((i, j))
+                es.append((j, i))
+            d[max(0, di - nms):min(ilen, di + nms + 1),
+              max(0, dj - nms):min(jlen, dj + nms + 1)] = np.inf
+
+        if len(es) < 3 or (loop and loop_edges == 0):
+            return 0
+        ii_new, jj_new = np.array(es).T
+        self.add_factors(ii_new, jj_new, remove=True)
+        return self.E

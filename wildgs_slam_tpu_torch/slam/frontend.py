@@ -1,11 +1,12 @@
 """Frontend: the local sliding-window BA loop; torch port of
-``wildgs_slam_tpu/slam/frontend.py`` without a backend (no loop closure).
+``wildgs_slam_tpu/slam/frontend.py``.
 
 Initialization (the warmup keyframes get neighbourhood and proximity
 factors and 8 + 8 updates), the per-keyframe update (edge aging, proximity
 proposal, 8 updates split around the mono-depth filter, flow-based
-keyframe culling, 4 more updates) and the second-stage re-initialization
-once the uncertainty MLP has been trained.
+keyframe culling, then loop-closure BA through the backend once the
+window is full and enabled, else 4 more updates) and the second-stage
+re-initialization once the uncertainty MLP has been trained.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from .factor_graph import FactorGraph
 
 
 class Frontend:
-    def __init__(self, state, model, cfg, uncertainty_update_fn=None):
+    def __init__(self, state, model, cfg, backend=None,
+                 uncertainty_update_fn=None):
         self.state = state
         self.cfg = cfg
         t = cfg["tracking"]
@@ -35,9 +37,11 @@ class Frontend:
         self.frontend_thresh = fe["thresh"]
         self.frontend_radius = fe["radius"]
         self.frontend_max_factors = fe["max_factors"]
+        self.enable_loop = fe["enable_loop"]
         self.update_eps = float(fe.get("update_eps", 0.0))
         self.multiview_thresh = t["multiview_filter"]["thresh"]
         self.multiview_visible_num = t["multiview_filter"]["visible_num"]
+        self.backend = backend          # Backend, for loop closure
         self.uncertainty_update_fn = uncertainty_update_fn  # () -> None
 
         self.graph = FactorGraph(state, model,
@@ -139,10 +143,20 @@ class Frontend:
             self.state.counter -= 1
             self.t1 -= 1
         else:
+            cur_t = self.state.counter
             self.num_keyframes_dropped = 0
-            with TIMER.phase("track.fe.graph_update"):
-                g.update_n(self.iters2, None, None, use_inactive=True,
-                           eps=self.update_eps)
+            ran_loop = False
+            if (self.enable_loop and cur_t > self.frontend_window
+                    and self.backend is not None):
+                with TIMER.phase("track.fe.loop_ba"):
+                    _, n_edge = self.backend.loop_ba(
+                        t_start=0, t_end=cur_t, steps=self.iters2,
+                        motion_only=False, local_graph=g)
+                ran_loop = n_edge > 0
+            if not ran_loop:
+                with TIMER.phase("track.fe.graph_update"):
+                    g.update_n(self.iters2, None, None, use_inactive=True,
+                               eps=self.update_eps)
         with TIMER.phase("track.fe.prep_next"):
             self._prep_next_slot()
 

@@ -15,7 +15,7 @@ maps compare slot by slot:
 - storage as in the Inria model: pre-sigmoid opacity, log scales,
   (w, x, y, z) quaternions.
 
-``save_ply`` / ``load_ply`` are not ported yet.
+``save_ply`` / ``load_ply`` read and write the reference's PLY layout.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import lie
@@ -301,3 +302,66 @@ def reset_opacity_nonvisible(m: GaussianMap, visible: torch.Tensor,
     m.nu.opacity.zero_()
     return m
 
+
+
+# ---------------------------------------------------------------------------
+# PLY export / import (the reference's layout, binary little-endian)
+# ---------------------------------------------------------------------------
+
+def save_ply(m: GaussianMap, path: str) -> int:
+    """Write the alive Gaussians: x y z, nx ny nz (zeros), f_dc_*, f_rest_*
+    (channel-major), opacity, scale_*, rot_* as float32. Returns the point
+    count."""
+    alive = m.aux.alive.cpu().numpy()
+    p = {n: getattr(m.params, n).detach().cpu().numpy()[alive]
+         for n in PARAM_NAMES}
+    n = p["xyz"].shape[0]
+    f_dc = p["f_dc"].transpose(0, 2, 1).reshape(n, -1)
+    f_rest = p["f_rest"].transpose(0, 2, 1).reshape(n, -1)
+    names = ["x", "y", "z", "nx", "ny", "nz"]
+    names += [f"f_dc_{i}" for i in range(f_dc.shape[1])]
+    names += [f"f_rest_{i}" for i in range(f_rest.shape[1])]
+    names += ["opacity"]
+    names += [f"scale_{i}" for i in range(p["scaling"].shape[1])]
+    names += [f"rot_{i}" for i in range(p["rotation"].shape[1])]
+    data = np.concatenate([p["xyz"], np.zeros_like(p["xyz"]), f_dc, f_rest,
+                           p["opacity"], p["scaling"], p["rotation"]],
+                          axis=1).astype("<f4")
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {nm}" for nm in names]
+    header += ["end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(data.tobytes())
+    return n
+
+
+def load_ply(path: str) -> dict:
+    """Read a PLY in save_ply's layout: a dict of numpy arrays xyz (n, 3),
+    f_dc (n, 1, 3), f_rest (n, R, 3), opacity (n, 1), scaling (n, S),
+    rotation (n, 4)."""
+    with open(path, "rb") as f:
+        props, n = [], 0
+        while True:
+            line = f.readline().decode("ascii").strip()
+            if line.startswith("element vertex"):
+                n = int(line.split()[-1])
+            elif line.startswith("property float"):
+                props.append(line.split()[-1])
+            elif line == "end_header":
+                break
+        data = np.frombuffer(f.read(n * len(props) * 4), dtype="<f4")
+    data = data.reshape(n, len(props))
+    col = {p: i for i, p in enumerate(props)}
+
+    def cols(prefix):
+        k = sum(1 for p in props if p.startswith(prefix))
+        return data[:, [col[f"{prefix}{i}"] for i in range(k)]]
+    f_rest = cols("f_rest_")
+    return dict(
+        xyz=data[:, [col["x"], col["y"], col["z"]]],
+        f_dc=cols("f_dc_").reshape(n, 3, -1).transpose(0, 2, 1),
+        f_rest=(f_rest.reshape(n, 3, -1).transpose(0, 2, 1) if f_rest.size
+                else np.zeros((n, 0, 3), np.float32)),
+        opacity=data[:, [col["opacity"]]], scaling=cols("scale_"),
+        rotation=cols("rot_"))

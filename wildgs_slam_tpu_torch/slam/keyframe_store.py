@@ -288,6 +288,18 @@ def filter_high_err_mono_depth(store: KeyframeStore, idx: int, ref_frames,
     return store
 
 
+@torch.no_grad()
+def normalize(store: KeyframeStore, n_frames: int) -> KeyframeStore:
+    """Scale the first n_frames so their mean disparity is 1: disparities
+    divided by it, pose translations multiplied by it, in place."""
+    n = max(1, n_frames)
+    s = store.disps[:n_frames].sum() / (n * store.disps.shape[1]
+                                        * store.disps.shape[2])
+    store.disps[:n_frames] /= s
+    store.poses[:n_frames, :3] *= s
+    return store
+
+
 def get_depth_and_pose(store: KeyframeStore, index: int,
                        metric_depth_reg: bool = True):
     """Mapper-side view: (depth (H, W), mask (H, W), c2w (7,))."""

@@ -1,5 +1,5 @@
-"""Mapping and uncertainty losses; torch port of
-``wildgs_slam_tpu/slam/losses.py`` (the mapper's subset).
+"""Tracking, mapping and uncertainty losses; torch port of
+``wildgs_slam_tpu/slam/losses.py``.
 
 Images are (H, W, 3), depths (H, W); uncertainties live on the DINO patch
 grid (H/14, W/14) and are resampled to pixels. ``.detach()`` stands where
@@ -63,6 +63,22 @@ def compute_grad_mask(image: torch.Tensor, edge_threshold: float,
     out[:bh * blocks, :bw * blocks] = mask_tiles.permute(0, 2, 1, 3).reshape(
         bh * blocks, bw * blocks)
     return out
+
+
+def tracking_loss_rgb(image, gt_image, opacity, grad_mask, exposure_a,
+                      exposure_b, rgb_boundary_threshold: float,
+                      uncertainty_pix=None) -> torch.Tensor:
+    """Opacity-weighted masked L1 of the exposure-compensated render,
+    optionally weighted by 0.5 / sigma^2 (weights below 0.1 set to 0)."""
+    image_ab = torch.exp(exposure_a) * image + exposure_b
+    rgb_mask = (gt_image.sum(-1) > rgb_boundary_threshold).to(image.dtype)
+    mask = (rgb_mask * grad_mask)[..., None]
+    l1 = opacity[..., None] * (image_ab * mask - gt_image * mask).abs()
+    if uncertainty_pix is not None:
+        w = 0.5 / uncertainty_pix ** 2
+        w = torch.where(w < 0.1, torch.zeros_like(w), w)
+        l1 = l1 * w[..., None]
+    return l1.mean()
 
 
 def mapping_loss_rgbd(image, depth, gt_image, gt_depth, exposure_a,

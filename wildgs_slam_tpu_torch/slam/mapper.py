@@ -17,8 +17,16 @@ kernels); on a CPU map through the plain ``render``. The view schedule is
 drawn from ``np.random.RandomState(rng_seed)`` exactly as in the JAX
 package, so the two draw the same views.
 
+``refine_pose_non_key_frame`` refines a non-keyframe's pose against the
+map as the JAX ``_refine_pose_core`` does (Adam on the twist and the
+exposure, the pose re-anchored each step, stop once |delta| < 1e-4) in
+a Python loop. ``fused_renders`` counts the renders through ``render_fused`` (each one
+K3 -> K1, and K2 -> K4 in its backward), ``refine_calls`` the refined
+frames and ``refine_steps`` their steps, each of which reads |delta| back
+to the host once.
+
 Not ported yet: the non-metric-depth branch (``_filled_depth`` and
-``_deform_projective``), non-keyframe pose refinement, the GUI.
+``_deform_projective``), the GUI.
 """
 
 from __future__ import annotations
@@ -200,6 +208,8 @@ class Mapper:
         self.video_idxs: List[int] = []
         self.frame_idxs: List[int] = []
         self.cam_w2c_old: Dict[int, np.ndarray] = {}
+        self.fused_renders = 0
+        self.refine_calls = self.refine_steps = 0
 
     # ------------------------------------------------------------------
 
@@ -428,8 +438,7 @@ class Mapper:
         exposure = self.vstore.exposure[idx].clone().requires_grad_(True)
         m2d = torch.zeros(self.capacity, 2, device=self.device,
                           requires_grad=True)
-        render_fn = render_fused if self.device.type == "cuda" else render
-        out = render_fn(
+        out = self._render_fn()(
             leaves.xyz, gm.get_scaling(leaves), gm.get_rotation_xyzw(leaves),
             gm.get_opacity(leaves), gm.get_sh(leaves), self.vstore.w2c[idx],
             self.intrinsics_full, self.image_size, alive=g.aux.alive,
@@ -490,6 +499,91 @@ class Mapper:
         if self.uncertainty_aware:
             self.uncer_adam.step(g_mlp, lr=up["lr"], wd=up["weight_decay"])
         return total.detach(), out.overflow
+
+    def _render_fn(self):
+        """The optimizing render: render_fused (its kernels) on the card,
+        the plain render on the CPU; counts the fused calls."""
+        if self.device.type != "cuda":
+            return render
+        self.fused_renders += 1
+        return render_fused
+
+    # ------------------------------------------------------------------
+    # non-keyframe pose refinement
+    # ------------------------------------------------------------------
+
+    def refine_pose_non_key_frame(self, color, w2c_init, features=None):
+        """Refine a non-keyframe pose against the current map. color (H, W,
+        3) in [0, 1], w2c_init (7,); features (h14, w14, D) DINO features
+        or None. Returns the refined w2c (7,)."""
+        tr = self.mc["Training"]
+        color = torch.as_tensor(np.ascontiguousarray(color, np.float32),
+                                device=self.device)
+        use_unc = self.uncertainty_aware and features is not None
+        grad_mask, uncer_pix = self._refine_prep(
+            color, torch.as_tensor(np.asarray(features, np.float32),
+                                   device=self.device) if use_unc else None)
+        self.refine_calls += 1
+        return self._refine_pose_core(
+            torch.as_tensor(np.asarray(w2c_init, np.float32),
+                            device=self.device), color, grad_mask, uncer_pix,
+            tr["lr"]["cam_rot_delta"], tr["lr"]["cam_trans_delta"],
+            tr["rgb_boundary_threshold"],
+            iters=int(tr.get("pose_refine_iters", 100)))
+
+    @torch.no_grad()
+    def _refine_prep(self, color, features):
+        """The edge mask of the image and, given features, the per-pixel
+        annealed uncertainty (the MLP's sigma, floored, resampled)."""
+        grad_mask = losses.compute_grad_mask(
+            color, self.mc["Training"]["edge_threshold"])
+        if features is None:
+            return grad_mask, None
+        sigma = torch.clamp(self.uncer_mlp(features), min=0.1) + 1e-3
+        big = kstore.resize_bilinear(sigma[None], self.image_size)[0]
+        data_rate = 1 + 1 * losses.compute_bias_factor(
+            self.mc["uncertainty_params"]["train_frac_fix"], 0.8)
+        return grad_mask, (big - 0.1) * data_rate + 0.1
+
+    def _refine_pose_core(self, w2c, gt_color, grad_mask, uncer_pix, lr_rot,
+                          lr_trans, rgb_boundary_threshold, iters=100):
+        """Adam (0.9, 0.999, 1e-8) on the twist (rho, theta) and the
+        exposure (a, b); each step renders at delta = 0, retracts the pose
+        by the step's delta and keeps the moments; stops after `iters`
+        steps or once |delta| < 1e-4."""
+        g = self.gaussians
+        p = g.params
+        geo = (p.xyz, gm.get_scaling(p), gm.get_rotation_xyzw(p),
+               gm.get_opacity(p), gm.get_sh(p))
+        dev = self.device
+        lr = torch.tensor([lr_trans] * 3 + [lr_rot] * 3 + [0.01] * 2,
+                          device=dev)
+        m = torch.zeros(8, device=dev)
+        v = torch.zeros(8, device=dev)
+        exposure = torch.zeros(2, device=dev)
+        for cnt in range(1, iters + 1):
+            delta = torch.zeros(6, device=dev, requires_grad=True)
+            expo = exposure.clone().requires_grad_(True)
+            out = self._render_fn()(
+                *geo, w2c, self.intrinsics_full, self.image_size,
+                alive=g.aux.alive, capacity=self.render_list_capacity,
+                chunk=64, pose_delta=delta, bin_kw=self.bin_kw)
+            loss = losses.tracking_loss_rgb(
+                out.color, gt_color, out.alpha, grad_mask, expo[0], expo[1],
+                rgb_boundary_threshold, uncertainty_pix=uncer_pix)
+            gd, ge = torch.autograd.grad(loss, (delta, expo))
+            with torch.no_grad():
+                grad = torch.cat([gd, ge])
+                m = 0.9 * m + 0.1 * grad
+                v = 0.999 * v + 0.001 * grad * grad
+                step = lr * (m / (1 - 0.9 ** cnt)) / (
+                    torch.sqrt(v / (1 - 0.999 ** cnt)) + 1e-8)
+                exposure = exposure - step[6:]
+                w2c = lie.se3_retr(w2c, -step[:6])
+                self.refine_steps += 1
+                if float(torch.linalg.norm(step[:6])) < 1e-4:
+                    break
+        return w2c
 
     def map_opt_online(self, window, iters):
         """50% of the view probability mass on the current window."""
@@ -588,7 +682,8 @@ class Mapper:
 
     def _update_keyframes_from_frontend(self):
         """Re-sync moved keyframe poses and deform their Gaussians."""
-        poses_host = self.state.store.poses.cpu().numpy()
+        # a copy: rows are kept as the old poses, and BA moves the store
+        poses_host = self.state.store.poses.cpu().numpy().copy()
         for video_idx in self.video_idxs:
             if not self.is_kf.get(video_idx, False):
                 continue
