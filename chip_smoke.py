@@ -46,8 +46,25 @@ Phases, each printing its own lines:
      1 cm), both read back from the metrics files terminate wrote; the
      refinement ran once per frame; the final map's keyframe PSNR >= 16 dB;
      K1-K4 each launched once per render_fused call on the path;
-  8. one JSON line describing every kernel;
-  9. the card again, then the last line {"ok": true, "device": {...}}.
+  8. the user's entry point. (a) The default priors at full width, built
+     by make_prior_fns from seeded checkpoints in upstream names that the
+     script writes under build/: metric3d_vit_large (the DepthAnythingV2
+     ViT-L stand-in under the 616x1064 canonical protocol) and
+     dinov2_reg_small_fine, timed on 8 frames at 384x512, and the disk
+     cache read back. (b) wildgs_slam_tpu_torch.run's build() and
+     SLAM.run() on 24 frames of the system phase's scene written as a TUM
+     sequence at 480x640 (PNGs from the script's own writer): invocation A
+     --max_frames 16 --fast_mode --checkpoint_every 8, then B --resume to
+     the end through a fresh build(); the oracle and the scene's exact depth
+     prior are put in between build() and run(). Gates: the reader's first
+     frame within one level of the written image's bilinear resize; A's
+     checkpoint; B resumed at A's frame and keyframe count; B's keyframe
+     ATE < 1 cm and full ATE <= max(1.5 x fast mode, 1 cm); B wrote the
+     map, viewer, video, config and timing files; K1-K4 launched once per
+     render_fused call in each invocation; build() never fell back to
+     running without the priors;
+  9. one JSON line describing every kernel;
+  10. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -63,12 +80,18 @@ script, run in turns in one call on one card.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import os
+import pickle
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS_FROM = (os.path.abspath(sys.argv[sys.argv.index("--kernels-from") + 1])
@@ -474,17 +497,23 @@ def small_render_check(dev):
 # phase 5: the mapper's keyframe path
 # ---------------------------------------------------------------------------
 
-def room_scene(cfg, n_kf, seed=0, step=1.0):
+def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None):
     """A textured box room seen by a camera moving through it: per keyframe
     an image, an exact metric depth and a world->camera pose, plus random
     DINO features; all from numpy with a seed. `step` scales the motion
-    between consecutive frames."""
+    between consecutive frames. `camera` ((H, W), (fx, fy, cx, cy)) renders
+    at that size and those intrinsics instead of the config's output
+    camera."""
     cam = cfg["cam"]
-    H, W = cam["H_out"], cam["W_out"]
-    sx = W / (cam["W"] - 2 * cam["W_edge"])
-    sy = H / (cam["H"] - 2 * cam["H_edge"])
-    fx, fy = cam["fx"] * sx, cam["fy"] * sy
-    cx, cy = (cam["cx"] - cam["W_edge"]) * sx, (cam["cy"] - cam["H_edge"]) * sy
+    if camera is None:
+        H, W = cam["H_out"], cam["W_out"]
+        sx = W / (cam["W"] - 2 * cam["W_edge"])
+        sy = H / (cam["H"] - 2 * cam["H_edge"])
+        fx, fy = cam["fx"] * sx, cam["fy"] * sy
+        cx = (cam["cx"] - cam["W_edge"]) * sx
+        cy = (cam["cy"] - cam["H_edge"]) * sy
+    else:
+        (H, W), (fx, fy, cx, cy) = camera
     intr = np.array([fx, fy, cx, cy], np.float32)
     rng = np.random.RandomState(seed)
     yy, xx = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5,
@@ -1179,6 +1208,377 @@ def system_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the user's entry point, python -m wildgs_slam_tpu_torch.run
+# ---------------------------------------------------------------------------
+
+ENTRY_DIR = os.path.join(HERE, "build", "chip_smoke", "entry")
+PRIOR_FRAMES = 8         # 384x512 frames through each prior at full width
+ENTRY_FRAMES = 24        # frames of the TUM sequence written to disk
+ENTRY_KILL = 16          # invocation A's --max_frames; B resumes there
+ENTRY_CUTS = {"init_itr_num": 150, "mapping_itr_num": 40,
+              "final_refine_iters": 200}   # depth only
+FALLBACK_LINE = "mono priors unavailable"   # run.build's line without priors
+
+
+def write_png(path, a):
+    """A uint8 (H, W, 3) RGB or uint16 (H, W) grey image as a PNG, the five
+    row filters taken in turn, so that the reader undoes each."""
+    h, w = a.shape[:2]
+    depth, ctype = (16, 0) if a.dtype == np.uint16 else (8, 2)
+    x = np.ascontiguousarray(a.astype(">u2") if depth == 16 else a).view(
+        np.uint8).reshape(h, -1).astype(np.int16)
+    bpp = x.shape[1] // w
+    up = np.concatenate([np.zeros_like(x[:1]), x[:-1]])
+    left = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+    upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    preds = [np.zeros_like(x), left, up, (left + up) >> 1,
+             np.where((pa <= pb) & (pa <= pc), left,
+                      np.where(pb <= pc, up, upleft))]
+    f = np.arange(h) % 5
+    pred = np.stack([preds[k][r] for r, k in enumerate(f)])
+    body = np.concatenate([f[:, None], (x - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                              0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(body.tobytes(), 6))
+                 + chunk(b"IEND", b""))
+
+
+def seeded_state(model, seed, dev):
+    """Every parameter drawn from N(0, 0.02) (norm and LayerScale scales
+    around 1, the unused mask token zero) from a seeded generator; the
+    state_dict on the host, in the module's (upstream) names."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("mask_token"):
+                continue
+            base = 1.0 if name.endswith(("gamma", "norm1.weight",
+                                         "norm2.weight", "norm.weight")) \
+                else 0.0
+            p.copy_(base + 0.02 * torch.randn(p.shape, generator=gen,
+                                              device=dev))
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def synced_ms(fn, *a):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def priors_phase(dev):
+    """8a: the default priors built by make_prior_fns from seeded .pth
+    files, on PRIOR_FRAMES frames; returns the checkpoint directory."""
+    from wildgs_slam_tpu_torch.models import dinov2, dpt, priors
+
+    cfg = load_config(CONFIG)
+    mp = cfg["mono_prior"]
+    ckpt = os.path.join(ENTRY_DIR, "pretrained")
+    os.makedirs(ckpt, exist_ok=True)
+    t0 = time.perf_counter()
+    stand_in = priors.METRIC3D_STAND_IN[mp["depth"]]
+    with torch.device(dev):
+        da2 = dpt.DepthAnythingV2(stand_in.split("_")[1], 20.0)
+        dino = dinov2.make_dinov2("vits", num_register_tokens=4)
+    n_da2 = sum(p.numel() for p in da2.parameters())
+    n_dino = sum(p.numel() for p in dino.parameters())
+    files = {priors.dpt_checkpoint_name(stand_in): (da2, 1),
+             f"fit3d_{mp['feature_extractor']}.pth": (dino, 2)}
+    for name, (model, seed) in files.items():
+        torch.save(seeded_state(model, seed, dev), os.path.join(ckpt, name))
+    del da2, dino
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"entry priors: seeded checkpoints {json.dumps(sorted(files))} "
+          f"({n_da2 / 1e6:.1f} M and {n_dino / 1e6:.1f} M parameters, "
+          f"{os.path.getsize(os.path.join(ckpt, sorted(files)[0])) / 2 ** 20:.0f}"
+          f" MiB) written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(ENTRY_DIR, "priors_out")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    (depth_fn, feat_fn), t_build = synced_ms(
+        priors.make_prior_fns, cfg, out, ckpt, dev)
+    trunk = depth_fn.fn.model
+    print(f"entry priors: depth {mp['depth']} = the DepthAnythingV2 "
+          f"{stand_in} stand-in ({len(trunk.pretrained.blocks)} blocks of "
+          f"width "
+          f"{trunk.pretrained.embed_dim}) under the canonical "
+          f"{depth_fn.fn.CANONICAL[0]}x{depth_fn.fn.CANONICAL[1]} protocol "
+          f"({depth_fn.fn.CANONICAL[0] // 14}x{depth_fn.fn.CANONICAL[1] // 14}"
+          f" patches); features {mp['feature_extractor']} = ViT-S/14 with "
+          f"{feat_fn.fn.model.num_register_tokens} registers; built by "
+          f"make_prior_fns in {t_build / 1e3:.2f} s")
+    _, _, frames = room_scene(cfg, PRIOR_FRAMES, seed=5)
+    depth_ms, feat_ms, first = [], [], None
+    for _, _, img, _ in frames:
+        d, td = synced_ms(depth_fn, img)
+        f, tf = synced_ms(feat_fn, img)
+        depth_ms.append(td)
+        feat_ms.append(tf)
+        first = (d, f) if first is None else first
+        if not (d.shape == img.shape[:2] and f.shape == (
+                img.shape[0] // 14, img.shape[1] // 14, 384)
+                and np.isfinite(d).all() and np.isfinite(f).all()):
+            raise AssertionError(f"priors: shapes {d.shape} {f.shape} or "
+                                 "non-finite values")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"entry priors: {PRIOR_FRAMES} frames at {img.shape[0]}x"
+          f"{img.shape[1]}: depth {depth_ms[0]:.1f} ms first call, "
+          f"{np.mean(depth_ms[1:]):.1f} ms per call after (min "
+          f"{min(depth_ms[1:]):.1f}); features {feat_ms[0]:.1f} ms first, "
+          f"{np.mean(feat_ms[1:]):.2f} ms per call after; outputs {d.shape} "
+          f"{d.dtype}, {f.shape} {f.dtype}; depth range "
+          f"{float(d.min()):.3f}-{float(d.max()):.3f} m (seeded weights); "
+          f"peak device memory {peak:.2f} GiB (the prior phase alone)")
+    again = priors.CachingPredictor(depth_fn.fn, depth_fn.cache_dir)
+    d0, t_cached = synced_ms(again, frames[0][2])
+    if not np.array_equal(d0, first[0]):
+        raise AssertionError("priors: the cache did not return call 0's "
+                             "depth")
+    print(f"entry priors: a fresh cache on the same directory reads call "
+          f"0's depth back from {again.cache_dir}/00000.npy in "
+          f"{t_cached:.2f} ms (equal)")
+    del depth_fn, feat_fn, trunk, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def write_tum_sequence(cfg, root):
+    """The system phase's room scene at the camera of the config's raw
+    frames, as TUM writes it: rgb/ and depth/ PNGs (depth 16-bit, scaled by
+    png_depth_scale), rgb.txt, depth.txt, groundtruth.txt."""
+    cam = cfg["cam"]
+    _, _, frames = room_scene(
+        cfg, ENTRY_FRAMES, seed=3, step=SYSTEM_STEP,
+        camera=((cam["H"], cam["W"]),
+                (cam["fx"], cam["fy"], cam["cx"], cam["cy"])))
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    lines = {"rgb.txt": [], "depth.txt": [], "groundtruth.txt": []}
+    rgb0 = None
+    for i, (w2c, depth, img, _) in enumerate(frames):
+        t = f"{1305031100.0 + i / 30:.6f}"
+        rgb = np.round(img * 255).astype(np.uint8)
+        rgb0 = rgb if rgb0 is None else rgb0
+        write_png(os.path.join(root, "rgb", f"{t}.png"), rgb)
+        write_png(os.path.join(root, "depth", f"{t}.png"), np.round(
+            depth * cam["png_depth_scale"]).astype(np.uint16))
+        c2w = lie.se3_inv(torch.as_tensor(w2c)).numpy()
+        lines["rgb.txt"].append(f"{t} rgb/{t}.png")
+        lines["depth.txt"].append(f"{t} depth/{t}.png")
+        lines["groundtruth.txt"].append(
+            f"{t} " + " ".join(f"{v:.9f}" for v in c2w))   # tx ty tz qx..qw
+    for name, ls in lines.items():
+        with open(os.path.join(root, name), "w") as fh:
+            fh.write("# written by chip_smoke.py\n# \n# \n" + "\n".join(ls))
+    return rgb0
+
+
+def run_entry(argv, label, cfg, dev):
+    """run.build(argv), the scene's exact depth prior and the oracle put in
+    between, then SLAM.run(); returns (slam, resume_path, record)."""
+    from wildgs_slam_tpu_torch import run as entry
+
+    wall0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, slam, resume = entry.build(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    if FALLBACK_LINE in text:
+        raise AssertionError(f"{label}: build ran without the priors")
+    H, W = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
+    _, _, truth = room_scene(cfg, ENTRY_FRAMES, seed=3, step=SYSTEM_STEP,
+                             camera=((H, W), tuple(slam.stream.intrinsic)))
+    # the depth prior: the scene's depth of the frame being tracked (the
+    # reader's timestamps are the frame indices)
+    mf = slam.motion_filter
+    track, frame = mf.track, {}
+
+    def tracked(tstamp, image):
+        frame["i"] = int(tstamp)
+        return track(tstamp, image)
+    mf.track = tracked
+    mf.depth_fn = lambda image: truth[frame["i"]][1]
+    sh, sw = kstore.slice_hw(H, W)
+    poses_gt = torch.as_tensor(np.stack([f[0] for f in truth]), device=dev)
+    disps_gt = torch.as_tensor(np.stack([1.0 / f[1][sh, sw] for f in truth]),
+                               device=dev)
+
+    def gt_injection(store, counter):
+        ts = store.timestamp.long().clamp(0, ENTRY_FRAMES - 1)
+        return poses_gt[ts], disps_gt[ts]
+    slam.frontend.graph.gt_injection = slam.backend.gt_injection = \
+        gt_injection
+    marks = {}
+    terminate = slam.terminate
+
+    def timed_terminate():
+        torch.cuda.synchronize()
+        marks["loop_end"] = time.perf_counter()
+        terminate()
+    slam.terminate = timed_terminate
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    TIMER.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    slam.run(resume_path=resume)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    rec = dict(launches=read_launches(), renders=slam.mapper.fused_renders,
+               wall0=wall0, t_loop=marks["loop_end"] - t0,
+               t_term=t_end - marks["loop_end"],
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+               stats={k: (v.count, v.total, v.first, v.warm_mean)
+                      for k, v in TIMER.stats.items()})
+    st = rec["stats"]
+    n = st["data.load"][0]
+    loop = rec["t_loop"] - st.get("checkpoint.load", (0, 0.0))[1]
+    print(f"{label}: {n} frames -> {slam.state.counter} keyframes; loop "
+          f"{loop:.2f} s ({loop / n * 1e3:.1f} ms per frame; a checkpoint "
+          f"load before it apart), terminate {rec['t_term']:.2f} s; data.load "
+          f"{st['data.load'][1] / n * 1e3:.1f} ms per frame (first "
+          f"{st['data.load'][2] * 1e3:.1f}); track.mf.priors "
+          f"{st['track.mf.priors'][1] / st['track.mf.priors'][0] * 1e3:.1f} "
+          f"ms per keyframe over {st['track.mf.priors'][0]}; peak device "
+          f"memory {rec['peak']:.2f} GiB")
+    print(f"{label} phases:\n" + TIMER.report())
+    print(f"{label}: render_fused calls {rec['renders']}; launches "
+          f"{json.dumps(rec['launches'])}")
+    if any(v != rec["renders"] for v in rec["launches"].values()):
+        raise AssertionError(f"{label}: launches {rec['launches']} != "
+                             f"{rec['renders']} render_fused calls")
+    return slam, resume, rec
+
+
+def entry_phase(dev, ckpt):
+    """8b: wildgs_slam_tpu_torch.run's build() and SLAM.run() on a TUM
+    sequence on disk, killed after ENTRY_KILL frames (invocation A) and
+    resumed by a fresh build (B); returns the kernels' launches."""
+    cfg = load_config(CONFIG)
+    cam = cfg["cam"]
+    seq = os.path.join(ENTRY_DIR, "tum_sequence")
+    out = os.path.join(ENTRY_DIR, "out")
+    for d in (seq, out):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    rgb0 = write_tum_sequence(cfg, seq)
+    print(f"entry: {ENTRY_FRAMES} frames of the system phase's room scene "
+          f"written as a TUM sequence ({cam['H']}x{cam['W']} RGB and 16-bit "
+          f"depth PNGs, depth scale {cam['png_depth_scale']}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tr_cfg = cfg["mapping"]["Training"]
+    reduced = {k: f"{(cfg['mapping'] if k == 'final_refine_iters' else tr_cfg)[k]}"
+               f" -> {v}" for k, v in ENTRY_CUTS.items()}
+    reduced["frames"] = (f"{ENTRY_FRAMES}, every one a keyframe (as phase "
+                         f"7); A --max_frames {ENTRY_KILL} --fast_mode "
+                         f"--checkpoint_every 8, B --resume to the end")
+    reduced["priors"] = ("features: the seeded DINOv2 of 8a through "
+                         "make_prior_fns; depth: the scene's exact depth, "
+                         "set on the motion filter after build() (a seeded "
+                         "DepthAnythingV2 predicts meaningless depth; 8a "
+                         "times it at full width)")
+    reduced["oracle"] = "gt_injection on the frontend's graph and backend"
+    print("entry reduced:", json.dumps(reduced))
+    spec = {"inherit_from": CONFIG, "scene": "entry", "verbose": False,
+            "data": {"input_folder": seq, "output": out},
+            "tracking": {"force_keyframe_every_n_frames": 1,
+                         "motion_filter": {"thresh": 1e9}},
+            "mapping": {"final_refine_iters": ENTRY_CUTS[
+                "final_refine_iters"],
+                "Training": {k: ENTRY_CUTS[k] for k in (
+                    "init_itr_num", "mapping_itr_num")}}}
+    cfg_path = os.path.join(ENTRY_DIR, "entry.yaml")
+    with open(cfg_path, "w") as fh:
+        json.dump(spec, fh)          # JSON is YAML
+    base = [cfg_path, "--device", str(dev), "--pretrained", ckpt]
+    scene_dir = os.path.join(out, "entry")
+    ckpt_path = os.path.join(scene_dir, "checkpoint.npz")
+
+    a, _, rec_a = run_entry(base + ["--checkpoint_every", "8",
+                                    "--max_frames", str(ENTRY_KILL),
+                                    "--fast_mode"], "entry A", cfg, dev)
+    frame0 = a.stream[0][1]
+    ref = torch.nn.functional.interpolate(
+        torch.as_tensor(rgb0, dtype=torch.float32).permute(2, 0, 1)[None],
+        size=(a.stream.H_out_with_edge, a.stream.W_out_with_edge),
+        mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+    ref = ref[cam["H_edge"]:-cam["H_edge"], cam["W_edge"]:-cam["W_edge"]]
+    err = float(np.abs(frame0 - ref / 255.0).max())
+    print(f"entry: the reader's frame 0 {frame0.shape} against the written "
+          f"image resized by F.interpolate (bilinear): max |diff| "
+          f"{err * 255:.3f} levels (tolerance 1)")
+    if not err <= 1.0 / 255 + 1e-6:
+        raise AssertionError(f"reader frame 0 off by {err * 255} levels")
+    if not os.path.exists(ckpt_path):
+        raise AssertionError("invocation A wrote no checkpoint")
+    with np.load(ckpt_path) as z:
+        meta = pickle.loads(z["__meta__"].tobytes())
+    ck = rec_a["stats"]["checkpoint.save"]
+    print(f"entry A: {ck[0]} checkpoints, checkpoint.save "
+          f"{ck[1] / ck[0] * 1e3:.1f} ms each (first {ck[2] * 1e3:.1f}); "
+          f"checkpoint.npz {os.path.getsize(ckpt_path) / 2 ** 20:.1f} MiB, "
+          f"next_frame {meta['loop_state']['next_frame']}, "
+          f"{meta['counter']} keyframes; keyframe ATE "
+          f"{read_metric(os.path.join(scene_dir, 'traj', 'kf_traj_metrics.txt')) * 100:.4f} cm")
+    kf_a, next_a = a.state.counter, meta["loop_state"]["next_frame"]
+    del a
+    gc.collect()
+
+    feat_dir = os.path.join(scene_dir, "mono_priors", "features")
+    cached = len(os.listdir(feat_dir))
+    b, resume, rec_b = run_entry(base + ["--resume"], "entry B", cfg, dev)
+    print(f"entry B: its feature cache restarted its call count at 0 and "
+          f"read {min(cached, rec_b['stats']['track.mf.priors'][0])} of its "
+          f"keyframes' features from A's {cached} files (ROADMAP Queue 3 "
+          f"(a), as the JAX package)")
+    n_b = rec_b["stats"]["data.load"][0]
+    ld = rec_b["stats"]["checkpoint.load"]
+    print(f"entry B: resumed from {resume} at frame {next_a} with {kf_a} "
+          f"keyframes (checkpoint.load {ld[1] * 1e3:.1f} ms), read "
+          f"{n_b} frames, ended with {b.state.counter} keyframes")
+    if not (resume == ckpt_path and meta["counter"] == kf_a
+            and next_a == ENTRY_KILL and n_b == ENTRY_FRAMES - next_a
+            and b.state.counter == ENTRY_FRAMES):
+        raise AssertionError("invocation B did not resume where A stopped")
+    for f in ("final_gs.ply", "map_viewer.html", "video.npz", "cfg.yaml",
+              "profile.txt", "traj/kf_traj_metrics.txt",
+              "traj/full_traj_metrics.txt"):
+        path = os.path.join(scene_dir, f)
+        if not (os.path.exists(path) and os.path.getsize(path) > 0
+                and os.path.getmtime(path) >= rec_b["wall0"] - 1.0):
+            raise AssertionError(f"invocation B did not write {path}")
+    kf = read_metric(os.path.join(scene_dir, "traj", "kf_traj_metrics.txt"))
+    full = read_metric(os.path.join(scene_dir, "traj",
+                                    "full_traj_metrics.txt"))
+    b.cfg["fast_mode"] = True
+    fast = b.full_traj_eval(os.path.join(scene_dir, "traj",
+                                         "full_traj_fast"))["rmse"]
+    print(f"entry B: keyframe ATE rmse {kf * 100:.4f} cm, full ATE rmse "
+          f"{full * 100:.4f} cm (fast_mode {fast * 100:.4f} cm); "
+          f"{gm.num_alive(b.mapper.gaussians)} Gaussians")
+    if not kf < ATE_MAX:
+        raise AssertionError(f"entry keyframe ATE {kf} m >= {ATE_MAX} m")
+    if not full <= max(1.5 * fast, ATE_MAX):
+        raise AssertionError(f"entry full ATE {full} m > max(1.5 x {fast}, "
+                             f"{ATE_MAX}) m")
+    return {k: rec_a["launches"][k] + rec_b["launches"][k] for k in KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1209,12 +1609,16 @@ def main():
     launches = slice_phase(dev)
     track_launches = tracking_phase(dev)
     system_launches = system_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_launches = entry_phase(dev, priors_phase(dev))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
             "mapping": launches[row["name"]],
             "tracking": track_launches[row["name"]],
-            "system": system_launches[row["name"]]}
+            "system": system_launches[row["name"]],
+            "entry": entry_launches[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,10 @@ structures into the port's. Numpy in, torch out; nothing here imports JAX.
   ``load_droid_checkpoint`` (``{"fnet": ..., "cnet": ..., "update": ...}``,
   conv kernels HWIO) -> the ``DroidNet`` ``state_dict`` (upstream
   ``droid.pth`` names, OIHW);
+- ``dinov2_state_from_jax`` / ``depth_anything_state_from_jax``: the flax
+  trees of the JAX ``DINOv2`` / ``DepthAnythingV2`` (as ``load_torch_dinov2``
+  / ``load_torch_depth_anything`` make them) -> the port's ``state_dict``
+  (upstream names);
 - ``gaussian_map_from_numpy``: a ``GaussianMap`` as a dict
   ``{"params": {...}, "aux": {...}, "mu": {...}, "nu": {...}, "count": n}``
   of numpy arrays (the JAX ``adam.mu``/``adam.nu``/``adam.count``);
@@ -81,6 +85,83 @@ def droid_params_from_jax(tree: Mapping) -> dict:
              else u[name])
     for name, p in u["gru"].items():
         conv(f"update.gru.{name}", p)
+    return sd
+
+
+def _conv(p) -> torch.Tensor:
+    """Flax kernel (kh, kw, in, out) -> OIHW. The same transpose takes a
+    transposed convolution's (kh, kw, out, in) (``transpose_kernel=True``)
+    to torch's (in, out, kh, kw)."""
+    return torch.as_tensor(np.array(p["kernel"], np.float32).transpose(
+        3, 2, 0, 1).copy())
+
+
+def _vec(x) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, np.float32))
+
+
+def dinov2_state_from_jax(tree: Mapping) -> dict:
+    """Flax DINOv2 params -> the port's DINOv2 state_dict (the unused
+    ``mask_token``, absent there, is zeros)."""
+    sd = {"patch_embed.proj.weight": _conv(tree["patch_embed"]),
+          "patch_embed.proj.bias": _vec(tree["patch_embed"]["bias"]),
+          "cls_token": _vec(tree["cls_token"]),
+          "pos_embed": _vec(tree["pos_embed"]),
+          "norm.weight": _vec(tree["norm"]["scale"]),
+          "norm.bias": _vec(tree["norm"]["bias"]),
+          "mask_token": torch.zeros(1, np.shape(tree["cls_token"])[-1])}
+    if "register_tokens" in tree:
+        sd["register_tokens"] = _vec(tree["register_tokens"])
+    i = 0
+    while f"block{i}" in tree:
+        b, p = tree[f"block{i}"], f"blocks.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{p}.{n}.weight"] = _vec(b[n]["scale"])
+            sd[f"{p}.{n}.bias"] = _vec(b[n]["bias"])
+        for key, d in (("attn.qkv", b["attn"]["qkv"]),
+                       ("attn.proj", b["attn"]["proj"]),
+                       ("mlp.fc1", b["mlp_fc1"]), ("mlp.fc2", b["mlp_fc2"])):
+            sd[f"{p}.{key}.weight"] = torch.as_tensor(
+                np.array(d["kernel"], np.float32).T.copy())
+            sd[f"{p}.{key}.bias"] = _vec(d["bias"])
+        sd[f"{p}.ls1.gamma"] = _vec(b["ls1_gamma"])
+        sd[f"{p}.ls2.gamma"] = _vec(b["ls2_gamma"])
+        i += 1
+    return sd
+
+
+def depth_anything_state_from_jax(tree: Mapping) -> dict:
+    """Flax DepthAnythingV2 params -> the port's state_dict. refinenet4's
+    first residual unit, which the forward never runs and a flax init does
+    not create, is zeros when the tree lacks it."""
+    sd = {f"pretrained.{k}": v
+          for k, v in dinov2_state_from_jax(tree["pretrained"]).items()}
+    h, o = tree["depth_head"], "depth_head."
+
+    def conv(key, p, bias=True):
+        sd[o + key + ".weight"] = _conv(p)
+        if bias:
+            sd[o + key + ".bias"] = _vec(p["bias"])
+    for i in range(4):
+        conv(f"projects.{i}", h[f"project{i}"])
+        conv(f"scratch.layer{i + 1}_rn", h[f"layer{i + 1}_rn"], bias=False)
+    conv("resize_layers.0", h["resize0"])
+    conv("resize_layers.1", h["resize1"])
+    conv("resize_layers.3", h["resize3"])
+    for i in range(1, 5):
+        r = h[f"refinenet{i}"]
+        rcu1 = r.get("rcu1") or {
+            n: {"kernel": np.zeros_like(r["rcu2"][n]["kernel"]),
+                "bias": np.zeros_like(r["rcu2"][n]["bias"])}
+            for n in ("conv1", "conv2")}
+        for name, unit in (("resConfUnit1", rcu1), ("resConfUnit2",
+                                                    r["rcu2"])):
+            for n in ("conv1", "conv2"):
+                conv(f"scratch.refinenet{i}.{name}.{n}", unit[n])
+        conv(f"scratch.refinenet{i}.out_conv", r["out_conv"])
+    conv("scratch.output_conv1", h["output_conv1"])
+    conv("scratch.output_conv2.0", h["output_conv2_0"])
+    conv("scratch.output_conv2.2", h["output_conv2_2"])
     return sd
 
 

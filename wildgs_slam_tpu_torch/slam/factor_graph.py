@@ -419,6 +419,23 @@ class FactorGraph:
         self.net, self.inp = other.net.clone(), other.inp.clone()
         self.target, self.weight = other.target.clone(), other.weight.clone()
 
+    @torch.no_grad()
+    def restore_edge_state(self, net, inp, target, weight, target_inac,
+                           weight_inac):
+        """Load the live and inactive edges' state (checkpoint resume) for
+        the edge lists already set; the correlation volumes are rebuilt
+        from the store's fmaps."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
+        self.net, self.inp = t(net), t(inp)
+        self.target, self.weight = t(target), t(weight)
+        self.target_inac, self.weight_inac = t(target_inac), t(weight_inac)
+        if self.corr_impl == "volume" and self.E > 0:
+            self._reserve_corr(self.E)
+            self._store_corr(_t(self.ii, self.device),
+                             _t(self.jj, self.device), 0)
+
     # ------------------------------------------------------------------
     # edge proposal (host numpy, as the JAX package)
     # ------------------------------------------------------------------

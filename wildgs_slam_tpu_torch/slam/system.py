@@ -6,9 +6,17 @@
 to ``Mapper.initialize_mapper``, runs online global BA every ``ba_freq``
 keyframes and ``Mapper.on_keyframe`` on every later keyframe, then
 ``terminate``: the final global BA, the keyframe store's video, the
-keyframe ATE, the final map refinement, every frame's pose (the trajectory
-filler, then the render-based refinement unless ``fast_mode``), the full
-ATE, the map's PLY and the uncertainty MLP's weights.
+depth-L1 evaluation (``eval_depth_l1``), the keyframe ATE, the final map
+refinement, every frame's pose (the trajectory filler, then the
+render-based refinement unless ``fast_mode``), the full ATE, the map's PLY
+and HTML viewer and the uncertainty MLP's weights.
+
+Between frames ``run`` polls the control channel (``gui/control.py``:
+pause, stop, checkpoint on request), writes a checkpoint every
+``checkpoint_every`` keyframes, and with ``resume_path`` continues a run
+from its checkpoint (``utils/checkpoint.py``). With anomaly detection on
+(``utils/debug.py``) it checks the store after the frontend and the map
+after each keyframe's mapping.
 
 ``uncertainty_update`` refreshes the BA weights from the mapper's
 uncertainty MLP over the DINO features of every live keyframe before each
@@ -17,8 +25,8 @@ BA (no device feature mirror, no frame-count buckets).
 The stream is any object with ``__len__``, ``__getitem__(i) -> (index,
 image (H, W, 3) float in [0, 1], depth or None, c2w (4, 4) or None)``,
 ``intrinsic`` (fx, fy, cx, cy at the output resolution) and ``poses``
-(None when there is no ground truth). Not ported yet: the control
-channel, checkpoints, the depth-L1 evaluation and the HTML viewer.
+(None when there is no ground truth); ``utils/datasets.py`` reads them
+from disk.
 """
 
 from __future__ import annotations
@@ -30,9 +38,13 @@ import numpy as np
 import torch
 
 from ..config import save_config
+from ..gui.control import ControlChannel
 from ..models import droid_net
 from ..ops import lie
+from ..utils import checkpoint
+from ..utils import debug
 from ..utils import eval_traj
+from ..utils.datasets import RGB_NoPose
 from ..utils.printer import PRINTER, FontColor
 from ..utils.profiling import TIMER
 from . import gaussian_map as gm
@@ -79,6 +91,11 @@ class SLAM:
         if self.uncertainty_aware and not up["activate"]:
             raise ValueError("uncertainty-aware tracking needs "
                              "uncertainty-aware mapping")
+        if int(cfg.get("parallel", {}).get("n_devices", 0) or 0) > 1:
+            raise NotImplementedError(
+                "parallel.n_devices > 1 (--mesh): the multi-device mode is "
+                "not ported yet")
+        debug.maybe_enable_from_cfg(cfg)
         ht, wd = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
         self.state = SlamState.create(
             cfg, ht, wd, np.asarray(stream.intrinsic, np.float64),
@@ -121,11 +138,18 @@ class SLAM:
             else None, train_frac_fix=train_frac)
         self.ba_freq = t["backend"]["ba_freq"]
         self.enable_online_ba = t["frontend"]["enable_online_ba"]
+        # pause / stop / checkpoint requests; the HTTP endpoint only when
+        # asked for (gui_http_port, or gui on)
+        self.control = ControlChannel(
+            self.save_dir, http_port=cfg.get(
+                "gui_http_port", 0 if cfg.get("gui", False) else None))
 
     # ------------------------------------------------------------------
 
-    def run(self):
-        """Track and map every stride-th frame, then terminate."""
+    def run(self, resume_path=None):
+        """Track and map every stride-th frame, then terminate.
+        resume_path: a checkpoint of an earlier run of this config, which
+        the run continues from the frame after it."""
         cfg = self.cfg
         stride = cfg.get("stride", 1)
         max_frames = cfg.get("max_frames", -1)
@@ -134,15 +158,43 @@ class SLAM:
         PRINTER.configure(total_frames=len(range(0, n_frames, stride)),
                           verbose=cfg.get("verbose", True))
         PRINTER.pbar_ready()
-        prev_kf_idx = prev_ba_idx = 0
+        prev_kf_idx = prev_ba_idx = start_i = 0
+        ckpt_every = int(cfg.get("checkpoint_every", 0))
+        ckpt_path = os.path.join(self.save_dir, "checkpoint.npz")
+        if resume_path:
+            with TIMER.phase("checkpoint.load", sync=True):
+                loop = checkpoint.load_slam_checkpoint(resume_path, self)
+            start_i = loop.get("next_frame", 0)
+            prev_kf_idx = loop.get("prev_kf_idx", 0)
+            prev_ba_idx = loop.get("prev_ba_idx", 0)
+            PRINTER.print(f"resumed from {resume_path}: frame {start_i}, "
+                          f"{self.state.counter} keyframes", FontColor.INFO)
         t_start = time.time()
-        for i in range(0, n_frames, stride):
+        for i in range(start_i, n_frames, stride):
+            cmd = self.control.poll()
+            if cmd["stop"]:
+                PRINTER.print(f"stop requested at frame {i}", FontColor.INFO)
+                break
+            if cmd["pause"]:
+                PRINTER.print(f"paused at frame {i} (control channel)",
+                              FontColor.INFO)
+                self.control.wait_if_paused()
+                PRINTER.print("resumed", FontColor.INFO)
+            if self.control.consume_checkpoint_request():
+                with TIMER.phase("checkpoint.save", sync=True):
+                    checkpoint.save_slam_checkpoint(ckpt_path, self, dict(
+                        next_frame=i, prev_kf_idx=prev_kf_idx,
+                        prev_ba_idx=prev_ba_idx))
+                PRINTER.print(f"checkpoint saved (control channel) -> "
+                              f"{ckpt_path}", FontColor.INFO)
             with TIMER.phase("data.load"):
                 timestamp, image, _, _ = self.stream[i]
             with TIMER.phase("track.motion_filter", sync=True):
                 force = self.motion_filter.track(float(timestamp), image)
             with TIMER.phase("track.frontend", sync=True):
                 self.frontend(force)
+            debug.anomaly_check("track.frontend", self.state.store.poses,
+                                self.state.store.disps)
             curr_kf_idx = self.state.counter - 1
             if curr_kf_idx != prev_kf_idx and self.frontend.is_initialized:
                 if self.state.counter == self.frontend.warmup:
@@ -157,8 +209,17 @@ class SLAM:
                         prev_ba_idx = curr_kf_idx
                     with TIMER.phase("map.keyframe", sync=True):
                         self.mapper.on_keyframe(curr_kf_idx, int(timestamp))
+                    debug.anomaly_check("map.keyframe",
+                                        self.mapper.gaussians.params)
+            new_kf = curr_kf_idx != prev_kf_idx
             prev_kf_idx = curr_kf_idx
             PRINTER.update_pbar(1)
+            if (ckpt_every > 0 and new_kf and self.frontend.is_initialized
+                    and self.state.counter % ckpt_every == 0):
+                with TIMER.phase("checkpoint.save", sync=True):
+                    checkpoint.save_slam_checkpoint(ckpt_path, self, dict(
+                        next_frame=i + stride, prev_kf_idx=prev_kf_idx,
+                        prev_ba_idx=prev_ba_idx))
         self.terminate()
         PRINTER.terminate()
         PRINTER.print(f"done in {time.time() - t_start:.1f}s, "
@@ -267,12 +328,25 @@ class SLAM:
         cfg = self.cfg
         traj_dir = os.path.join(self.save_dir, "traj")
         os.makedirs(traj_dir, exist_ok=True)
-        has_gt = getattr(self.stream, "poses", None) is not None
+        has_gt = (not isinstance(self.stream, RGB_NoPose)
+                  and getattr(self.stream, "poses", None) is not None)
         final_ba = cfg["tracking"]["backend"]["final_ba"]
         if final_ba:
             with TIMER.phase("final.global_ba", sync=True):
                 self.final_ba()
         self.save_video(os.path.join(self.save_dir, "video.npz"))
+        if cfg.get("eval_depth_l1", False) and has_gt:
+            from ..utils.eval_depth import eval_depth_l1
+            try:
+                l1, l1_4m, cov = eval_depth_l1(
+                    self.state.store, self.state.counter, self.stream)
+                msg = (f"depth L1: {l1:.4f} m, depth L1 (<4m): {l1_4m:.4f} "
+                       f"m, mask coverage: {cov:.3f}")
+                PRINTER.print(msg, FontColor.EVAL)
+                with open(os.path.join(traj_dir, "depth_l1.txt"), "w") as f:
+                    f.write(msg + "\n")
+            except Exception as e:
+                PRINTER.print(f"depth L1 eval failed: {e}", FontColor.ERROR)
         if has_gt:
             try:
                 stats = self.kf_traj_eval(os.path.join(traj_dir, "kf_traj"))
@@ -297,6 +371,13 @@ class SLAM:
         n = gm.save_ply(self.mapper.gaussians,
                         os.path.join(self.save_dir, "final_gs.ply"))
         PRINTER.print(f"saved {n} gaussians", FontColor.PCL)
+        try:
+            from ..gui.html_viewer import export_viewer_from_map
+            export_viewer_from_map(
+                os.path.join(self.save_dir, "map_viewer.html"),
+                self.mapper.gaussians)
+        except Exception as e:
+            PRINTER.print(f"viewer export failed: {e}", FontColor.ERROR)
         if self.uncertainty_aware:
             torch.save({k: v.cpu() for k, v in
                         self.mapper.uncer_mlp.state_dict().items()},
@@ -306,3 +387,4 @@ class SLAM:
             f.write(TIMER.report() + "\n")
         if cfg.get("verbose", True):
             PRINTER.print("phase timings:\n" + TIMER.report(), FontColor.INFO)
+        self.control.close()
