@@ -22,7 +22,9 @@ Tolerances, and why:
   atol 1e-4;
 - ``run.build`` + ``run()``: the files the JAX ``run.py`` path writes (the
   port writes the uncertainty MLP's weights as .pth, the JAX package as
-  .pkl), keyframe ATE < 1 cm under the oracle, on both sides.
+  .pkl), keyframe ATE < 1 cm under the oracle, on both sides; without the
+  prior checkpoints the one fallback line, its three switches off, and a
+  run to its end (keyframe ATE < 1 cm).
 
 The JAX BA iteration runs through ``jax.jit`` (a test-side wrapper, as in
 tests/test_torch_system.py).
@@ -681,11 +683,10 @@ def test_entry_point_refusals(tmp_path, tum_scene, monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         trun.build([path, "--device", "cpu", "--mesh", "2",
                     "--pretrained", ckpts])
-    # no checkpoints: the reference's fallback, on one line, then the
-    # port's mapper stops (the branch without metric depth waits)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trun.build([path, "--device", "cpu", "--pretrained",
-                    str(tmp_path / "none")])
+    # no checkpoints: the reference's fallback, on one line, and the run
+    # goes on without metric depth and without uncertainty
+    cfg_, slam, _ = trun.build([path, "--device", "cpu", "--pretrained",
+                                str(tmp_path / "none")])
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if "mono priors unavailable" in ln]
     assert len(lines) == 1
@@ -693,3 +694,23 @@ def test_entry_point_refusals(tmp_path, tum_scene, monkeypatch, capsys):
                    "tracking.uncertainty_params.activate",
                    "mapping.uncertainty_params.activate"):
         assert switch in lines[0]
+    assert not (slam.state.metric_depth_reg or slam.uncertainty_aware
+                or slam.mapper.uncertainty_aware)
+    assert slam.motion_filter.depth_fn is None
+    # and runs to its end on the oracle (no prior to fill holes from)
+    w2c, disps = (torch.from_numpy(a) for a in exact_priors(
+        slam, slam.stream, slam.stream.intrinsic))
+    slam.motion_filter.depth_fn = None
+
+    def oracle(store, counter):
+        ts = store.timestamp.long().clamp(0, N_TUM - 1)
+        return w2c[ts], disps[ts]
+    slam.frontend.graph.gt_injection = slam.backend.gt_injection = oracle
+    slam.run()
+    assert slam.state.counter == N_TUM
+    # every keyframe filled, and again as BA moves it
+    assert slam.mapper.fills > N_TUM and slam.mapper.invalid_keyframes == 0
+    out = os.path.join(cfg_["data"]["output"], cfg_["scene"])
+    assert tev.read_metric(os.path.join(out, "traj",
+                                        "kf_traj_metrics.txt")) < 0.01
+    assert os.path.getsize(os.path.join(out, "final_gs.ply")) > 0

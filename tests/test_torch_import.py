@@ -51,3 +51,21 @@ def test_sources_name_no_jax_module():
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
         assert "importlib.import_module(\"jax" not in path.read_text()
+
+
+# the modules that compute what the JAX package computes without cv2, scipy
+# or matplotlib: one semantics everywhere, so neither an import of those nor
+# a fallback on ImportError
+ONE_SEMANTICS = ("slam/depth_fill.py", "slam/mapper.py", "gui/file_gui.py",
+                 "gui/html_viewer.py", "utils/png.py", "ops/lie.py")
+
+
+def test_one_semantics_modules_import_no_image_library():
+    for rel in ONE_SEMANTICS:
+        path = PORT / rel
+        bad = [m for m in _imports(path)
+               if m.split(".")[0] in ("cv2", "scipy", "matplotlib", "PIL")]
+        assert not bad, f"{rel} imports {bad}"
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ExceptHandler) and node.type is not None:
+                assert "ImportError" not in ast.unparse(node.type), rel

@@ -1,3 +1,6 @@
-"""The control channel and the map's HTML export; the port's own copies of
-``wildgs_slam_tpu/gui/control.py`` and the export half of
-``wildgs_slam_tpu/gui/html_viewer.py``."""
+"""The control channel, the file GUI and the map's HTML viewers; the port's
+own copies of ``wildgs_slam_tpu/gui/``."""
+
+from .file_gui import FileGui, GaussianPacket
+
+__all__ = ["FileGui", "GaussianPacket"]

@@ -1,16 +1,18 @@
-"""Self-contained interactive HTML viewers of the final Gaussian map; the
-port's own copy of the export half of ``wildgs_slam_tpu/gui/html_viewer.py``
-(the live viewer waits for the GUI packets).
+"""Self-contained interactive HTML viewers of the Gaussian map; the port's
+own copy of ``wildgs_slam_tpu/gui/html_viewer.py``.
 
 ``export_viewer_from_map`` writes a WebGL2 sort-and-blend splat viewer of
 the alive Gaussians and, beside it as ``<name>_points.html``, a 2D-canvas
 point view; both single HTML files with the map embedded, no external
-dependencies. The bytes equal the JAX package's export of the same map.
+dependencies. ``write_live_viewer`` writes the live page that polls the
+``map.json`` snapshots ``map_snapshot_json`` serializes (the file GUI
+writes both). The bytes equal the JAX package's for the same inputs.
 """
 
 from __future__ import annotations
 
 import base64
+import json
 import os
 
 import numpy as np
@@ -70,6 +72,110 @@ draw();
 </script></body></html>
 """
 
+
+_LIVE_TEMPLATE = """<!doctype html>
+<html><head><meta charset="utf-8"><title>wildgs_slam_tpu live map</title>
+<style>body{margin:0;background:#0b0b12;color:#9aa;overflow:hidden;
+font-family:monospace}#hud{position:fixed;top:8px;left:8px}
+button{background:#333;color:#eee;border:1px solid #666;margin:2px;
+padding:3px 9px;cursor:pointer}</style></head>
+<body><div id="hud"><span id="st">loading…</span> · drag=orbit ·
+wheel=zoom · shift-drag=pan<br>__CONTROLS__</div>
+<canvas id="c"></canvas><script>
+let N=0,pos=null,col=null,sca=null,rev=-1;
+const cv=document.getElementById("c"),ctx=cv.getContext("2d");
+let W,H;function rs(){W=cv.width=innerWidth;H=cv.height=innerHeight;}
+rs();addEventListener("resize",()=>{rs();draw();});
+let cx=0,cy=0,cz=0,yaw=0.5,pitch=-0.4,dist=6,panx=0,pany=0;
+let drag=false,panm=false,lx=0,ly=0;
+cv.onmousedown=e=>{drag=true;panm=e.shiftKey;lx=e.clientX;ly=e.clientY;};
+onmouseup=()=>drag=false;
+onmousemove=e=>{if(!drag)return;const dx=e.clientX-lx,dy=e.clientY-ly;
+lx=e.clientX;ly=e.clientY;
+if(panm){panx+=dx*dist/500;pany+=dy*dist/500;}else{yaw+=dx*.005;
+pitch+=dy*.005;}draw();};
+onwheel=e=>{dist*=Math.exp(e.deltaY*.001);draw();};
+function b64f32(s){const r=Uint8Array.from(atob(s),c=>c.charCodeAt(0));
+return new Float32Array(r.buffer);}
+async function poll(){
+ try{
+  const m=await (await fetch("map.json?r="+Math.random())).json();
+  if(m.rev!==rev){rev=m.rev;N=m.n;
+   pos=b64f32(m.pos);col=b64f32(m.col);sca=b64f32(m.sca);
+   cx=0;cy=0;cz=0;for(let i=0;i<N;i++){cx+=pos[3*i];cy+=pos[3*i+1];
+   cz+=pos[3*i+2];}cx/=N;cy/=N;cz/=N;
+   document.getElementById("st").textContent=
+     m.n+" gaussians · frame "+m.frame;
+   draw();}
+ }catch(e){document.getElementById("st").textContent="waiting for map…";}
+ setTimeout(poll,2000);}
+poll();
+let ord=null,zbuf=null;
+function draw(){
+ if(!pos)return;
+ if(!ord||ord.length!==N){ord=new Int32Array(N);zbuf=new Float32Array(N);}
+ ctx.fillStyle="#0b0b12";ctx.fillRect(0,0,W,H);
+ const sy=Math.sin(yaw),cyw=Math.cos(yaw),sp=Math.sin(pitch),
+       cp=Math.cos(pitch),f=0.9*Math.min(W,H);
+ for(let i=0;i<N;i++){
+  let x=pos[3*i]-cx,y=pos[3*i+1]-cy,z=pos[3*i+2]-cz;
+  let x1=cyw*x+sy*z, z1=-sy*x+cyw*z;
+  let z2=sp*y+cp*z1;
+  zbuf[i]=z2+dist;ord[i]=i;
+ }
+ ord.sort((a,b)=>zbuf[b]-zbuf[a]);
+ for(let k=0;k<N;k++){const i=ord[k];const zc=zbuf[i];
+  if(zc<=0.05)continue;
+  let x=pos[3*i]-cx,y=pos[3*i+1]-cy,z=pos[3*i+2]-cz;
+  let x1=cyw*x+Math.sin(yaw)*z,
+      z1=-Math.sin(yaw)*x+cyw*z;
+  let y2=Math.cos(pitch)*y-Math.sin(pitch)*z1;
+  const sx=W/2+f*(x1+panx)/zc, syp=H/2+f*(y2+pany)/zc;
+  const r=Math.max(0.7,Math.min(12,f*sca[i]/zc));
+  ctx.fillStyle=`rgb(${col[3*i]*255|0},${col[3*i+1]*255|0},`+
+                `${col[3*i+2]*255|0})`;
+  ctx.beginPath();ctx.arc(sx,syp,r,0,6.283);ctx.fill();}
+}
+</script></body></html>
+"""
+
+_LIVE_CONTROLS = """<button onclick="fetch('http://127.0.0.1:__PORT__/pause')">pause</button>
+<button onclick="fetch('http://127.0.0.1:__PORT__/resume')">resume</button>
+<button onclick="fetch('http://127.0.0.1:__PORT__/checkpoint')">checkpoint</button>
+<button onclick="fetch('http://127.0.0.1:__PORT__/stop')">stop</button>"""
+
+
+def write_live_viewer(path: str, http_port: int | None = None) -> str:
+    """Write the LIVE map viewer page: polls `map.json` (written next to it
+    by FileGui.push every keyframe) and redraws the orbiting point cloud —
+    the reference's live Open3D gaussian view (src/gui/slam_gui.py), over
+    any static file server. Control buttons included when the control
+    channel's HTTP port is known."""
+    controls = (_LIVE_CONTROLS.replace("__PORT__", str(http_port))
+                if http_port else "")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(_LIVE_TEMPLATE.replace("__CONTROLS__", controls))
+    return path
+
+
+def map_snapshot_json(xyz: np.ndarray, rgb: np.ndarray, scales: np.ndarray,
+                      frame_idx: int, rev: int,
+                      max_points: int = 60000) -> str:
+    """Serialize a (downsampled) map snapshot for the live viewer."""
+    n = xyz.shape[0]
+    if n > max_points:
+        sel = np.random.RandomState(rev).choice(n, max_points, replace=False)
+        xyz, rgb, scales = xyz[sel], rgb[sel], scales[sel]
+        n = max_points
+    enc = lambda a: base64.b64encode(
+        np.ascontiguousarray(a, np.float32).tobytes()).decode("ascii")
+    return json.dumps({
+        "n": int(n), "rev": int(rev), "frame": int(frame_idx),
+        "pos": enc(xyz.reshape(-1)),
+        "col": enc(np.clip(rgb, 0, 1).reshape(-1)),
+        "sca": enc(scales.reshape(-1)),
+    })
 
 
 def export_viewer(path: str, xyz: np.ndarray, rgb: np.ndarray,

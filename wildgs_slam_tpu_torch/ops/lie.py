@@ -1,10 +1,12 @@
-"""SE(3) half of the Lie-group library, on torch tensors.
+"""The SE(3)/Sim(3) Lie-group library on torch tensors; the port of
+``wildgs_slam_tpu/ops/lie.py``.
 
-Port of the SE3/SO3 part of ``wildgs_slam_tpu/ops/lie.py`` that the
-rasterizer, the mapper and the tracking frontend need (the Sim3 half waits
-for the backend). Storage layout as there: SE3 elements are 7-vectors
-``(tx, ty, tz, qx, qy, qz, qw)``, twists are ``(tau, phi)`` with translation
-first, and the retraction is left multiplication ``exp(xi) * X``.
+Storage layout as there: SE3 elements are 7-vectors ``(tx, ty, tz, qx, qy,
+qz, qw)``, Sim3 elements 8-vectors with a trailing scale; twists are
+``(tau, phi)`` (``(tau, phi, sigma)`` for Sim3) with translation first, and
+the retraction is left multiplication ``exp(xi) * X``. ``SE3`` and ``Sim3``
+are thin lietorch-style wrappers over such tensors; ``cat`` concatenates
+them.
 """
 
 from __future__ import annotations
@@ -242,3 +244,214 @@ def se3_normalize(g: torch.Tensor) -> torch.Tensor:
     q = g[..., 3:7]
     return torch.cat([g[..., :3], q / torch.linalg.norm(q, dim=-1,
                                                         keepdim=True)], -1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3) on 8-vectors (tx, ty, tz, qx, qy, qz, qw, s); tangent (tau, phi,
+# sigma)
+# ---------------------------------------------------------------------------
+
+def sim3_identity(shape=(), dtype=torch.float32, device="cuda"
+                  ) -> torch.Tensor:
+    base = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1], dtype=dtype, device=device)
+    return base.expand(tuple(shape) + (8,)).clone()
+
+
+def sim3_from_se3(g: torch.Tensor, scale=None) -> torch.Tensor:
+    s = torch.ones_like(g[..., :1]) if scale is None else scale
+    return torch.cat([g, s], dim=-1)
+
+
+def sim3_inv(g: torch.Tensor) -> torch.Tensor:
+    t, q, s = g[..., :3], g[..., 3:7], g[..., 7:8]
+    qinv = quat_conj(q)
+    sinv = 1.0 / s
+    return torch.cat([-sinv * quat_act(qinv, t), qinv, sinv], dim=-1)
+
+
+def sim3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ta, qa, sa = a[..., :3], a[..., 3:7], a[..., 7:8]
+    tb, qb, sb = b[..., :3], b[..., 3:7], b[..., 7:8]
+    return torch.cat([ta + sa * quat_act(qa, tb), quat_mul(qa, qb), sa * sb],
+                     dim=-1)
+
+
+def sim3_act(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return g[..., 7:8] * quat_act(g[..., 3:7], p) + g[..., :3]
+
+
+def sim3_act4(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    xyz, w = p[..., :3], p[..., 3:4]
+    out = g[..., 7:8] * quat_act(g[..., 3:7], xyz) + w * g[..., :3]
+    return torch.cat([out, w.expand(out.shape[:-1] + (1,))], dim=-1)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) tangent (..., 7) = (tau, phi, sigma) -> Sim3 8-vector:
+    t = W(phi, sigma) tau, s = exp(sigma), with the similarity transform's
+    left Jacobian W = A I + B Phi + C Phi^2 in four regimes (theta and
+    sigma small or not)."""
+    tau, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    q = so3_exp_quat(phi)
+    s = torch.exp(sigma)
+    theta_sq = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta_sq + _EPS * _EPS)
+    Phi = skew(phi)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand_as(Phi)
+
+    small_s = torch.abs(sigma) < 1e-4
+    small_t = theta_sq < 1e-8
+    sig_safe = torch.where(small_s, torch.ones_like(sigma), sigma)
+    th_safe = torch.where(small_t, torch.ones_like(theta), theta)
+
+    A = torch.where(small_s, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig_safe)
+    # theta not small (any sigma): the general formulas are sigma-regular
+    denom = sigma * sigma + th_safe * th_safe
+    sin_t, cos_t = torch.sin(th_safe), torch.cos(th_safe)
+    B_full = (s * sin_t * sigma + (1.0 - s * cos_t) * th_safe) / (
+        th_safe * denom)
+    C_full = (A - ((s * cos_t - 1.0) * sigma + s * sin_t * th_safe)
+              / denom) / (th_safe * th_safe)
+    # theta small: series in theta, guarded in sigma
+    B_small_t = torch.where(small_s, 0.5 + sigma / 3.0,
+                            ((sig_safe - 1.0) * s + 1.0) / (sig_safe ** 2))
+    C_small_t = torch.where(
+        small_s, 1.0 / 6.0 + sigma / 8.0,
+        (s * (0.5 * sig_safe ** 2 - sig_safe + 1.0) - 1.0) / (sig_safe ** 3))
+    B = torch.where(small_t, B_small_t, B_full)
+    C = torch.where(small_t, C_small_t, C_full)
+
+    W = (A[..., None, None] * eye + B[..., None, None] * Phi
+         + C[..., None, None] * (Phi @ Phi))
+    t = (W @ tau[..., None])[..., 0]
+    return torch.cat([t, q, s[..., None]], dim=-1)
+
+
+def sim3_log(g: torch.Tensor) -> torch.Tensor:
+    """Sim3 8-vector -> sim(3) tangent (..., 7), the inverse of sim3_exp:
+    W's columns are sim3_exp's translations of the unit twists, and
+    W tau = t is solved."""
+    t, q, s = g[..., :3], g[..., 3:7], g[..., 7]
+    phi = so3_log(q)
+    sigma = torch.log(s)
+    eye = torch.eye(3, dtype=g.dtype, device=g.device).expand(
+        g.shape[:-1] + (3, 3))
+    W = torch.stack([sim3_exp(torch.cat([eye[..., i], phi, sigma[..., None]],
+                                        dim=-1))[..., :3]
+                     for i in range(3)], dim=-1)
+    tau = torch.linalg.solve(W, t[..., None])[..., 0]
+    return torch.cat([tau, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_matrix(g: torch.Tensor) -> torch.Tensor:
+    R = quat_to_matrix(g[..., 3:7]) * g[..., 7:8, None]
+    top = torch.cat([R, g[..., :3, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype,
+                          device=g.device).expand(g.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# lietorch-style wrappers
+# ---------------------------------------------------------------------------
+
+class SE3:
+    """lietorch.SE3-style wrapper over a (..., 7) tensor."""
+
+    manifold_dim = 6
+    embedded_dim = 7
+
+    def __init__(self, data):
+        self.data = torch.as_tensor(data)
+
+    @property
+    def shape(self):
+        return self.data.shape[:-1]
+
+    def __getitem__(self, idx):
+        return SE3(self.data[idx])
+
+    @classmethod
+    def Identity(cls, *shape, dtype=torch.float32, device="cuda"):
+        return cls(se3_identity(shape, dtype, device))
+
+    @classmethod
+    def exp(cls, xi):
+        return cls(se3_exp(xi))
+
+    @classmethod
+    def InitFromVec(cls, data):
+        return cls(data)
+
+    def inv(self):
+        return SE3(se3_inv(self.data))
+
+    def __mul__(self, other):
+        if isinstance(other, SE3):
+            return SE3(se3_mul(self.data, other.data))
+        other = torch.as_tensor(other, device=self.data.device)
+        if other.shape[-1] == 4:
+            return se3_act4(self.data, other)
+        return se3_act(self.data, other)
+
+    def matrix(self):
+        return se3_matrix(self.data)
+
+    def log(self):
+        return se3_log(self.data)
+
+    def retr(self, xi):
+        return SE3(se3_retr(self.data, xi))
+
+    def adj(self, a):
+        return se3_adj(self.data, a)
+
+    def adjT(self, a):
+        return se3_adjT(self.data, a)
+
+    def normalize(self):
+        return SE3(se3_normalize(self.data))
+
+    def translation(self):
+        return self.data[..., :3]
+
+    def quaternion(self):
+        return self.data[..., 3:7]
+
+
+class Sim3:
+    """lietorch.Sim3-style wrapper over a (..., 8) tensor."""
+
+    manifold_dim = 7
+    embedded_dim = 8
+
+    def __init__(self, data):
+        self.data = torch.as_tensor(data)
+
+    @property
+    def shape(self):
+        return self.data.shape[:-1]
+
+    @classmethod
+    def Identity(cls, *shape, dtype=torch.float32, device="cuda"):
+        return cls(sim3_identity(shape, dtype, device))
+
+    def inv(self):
+        return Sim3(sim3_inv(self.data))
+
+    def __mul__(self, other):
+        if isinstance(other, Sim3):
+            return Sim3(sim3_mul(self.data, other.data))
+        other = torch.as_tensor(other, device=self.data.device)
+        if other.shape[-1] == 4:
+            return sim3_act4(self.data, other)
+        return sim3_act(self.data, other)
+
+    def matrix(self):
+        return sim3_matrix(self.data)
+
+
+def cat(groups, dim=0):
+    """lietorch.cat: one group of the groups' tensors concatenated."""
+    return type(groups[0])(torch.cat([g.data for g in groups], dim=dim))

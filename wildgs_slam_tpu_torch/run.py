@@ -10,8 +10,9 @@ mono priors (DepthAnythingV2 under the Metric3D protocol and DINOv2 / FiT3D
 features), and runs ``SLAM.run`` with checkpoints, the control channel and
 the anomaly checks. If the priors cannot be built the run goes on without
 them, as the reference does, after one line naming the reason and the three
-switches that turns off; the port's mapper then stops, because the mapping
-branch without metric depth is not ported yet.
+switches that turns off: the mapper then maps the frontend's BA depth
+(with no prior to fill its invalid pixels from), and tracking and mapping
+run without uncertainty.
 
 ``build(argv)`` does everything up to the run and returns (cfg, slam,
 resume_path), so that a caller can change the system (an oracle, another

@@ -42,7 +42,7 @@ from ..utils.profiling import TIMER
 from . import keyframe_store as kstore
 
 EP_DAMP = 1e-7
-ORACLE_UP_FRAMES = 96   # frames below t1 whose disps_up the oracle refreshes
+ORACLE_UP_FRAMES = 96   # slots whose disps_up the oracle refreshes
 CORR_CHUNK = 8          # edges per correlation-volume build
 LOWMEM_CHUNK = 8        # source frames per update-operator call in
                         # update_lowmem
@@ -330,9 +330,14 @@ class FactorGraph:
                       metric_depth_reg=st.metric_depth_reg,
                       uncertainty_aware=st.uncertainty_aware)
             n_done += 1
-        # keep disps_up in sync: the oracle has no learned upsampling mask
+        # keep disps_up in sync: the oracle has no learned upsampling mask.
+        # ORACLE_UP_FRAMES slots from t1 - ORACLE_UP_FRAMES on, as the JAX
+        # package: past t1 too, where the depth filter's neighbours of the
+        # newest frames (i + 3 .. i + 5) read
         store = st.store
-        frames = torch.arange(max(0, t1 - ORACLE_UP_FRAMES), t1,
+        fb = max(0, t1 - ORACLE_UP_FRAMES)
+        frames = torch.arange(fb, min(fb + ORACLE_UP_FRAMES,
+                                      store.disps.shape[0]),
                               device=self.device)
         store.disps_up[frames] = kstore.resize_bilinear(
             store.disps[frames], store.disps_up.shape[-2:])

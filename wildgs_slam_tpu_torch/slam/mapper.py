@@ -6,6 +6,13 @@ Torch port of ``wildgs_slam_tpu/slam/mapper.py`` (the keyframe path):
   (Szymkiewicz-Simpson overlap + inverse-distance eviction), the
   densify/prune and opacity-reset schedule, keyframe re-sync after BA with
   rigid Gaussian deformation;
+- without metric depth (``tracking.backend.metric_depth_reg`` off, the
+  Splat-SLAM mode and the run without mono priors): each keyframe's
+  frontend depth is filled with its aligned mono prior
+  (``depth_fill.splat_slam_fill``), a keyframe with fewer than 100 valid
+  depths is skipped, and a keyframe that BA moved is filled again and its
+  Gaussians deformed projectively (rescaled along their rays by the
+  depth's change);
 - the optimization segment: where the JAX package scans a jitted step over
   pre-drawn view indices, here a Python loop runs the same step (render,
   the uncertainty-aware mapping loss + DINO regularization + isotropic
@@ -20,28 +27,39 @@ package, so the two draw the same views.
 ``refine_pose_non_key_frame`` refines a non-keyframe's pose against the
 map as the JAX ``_refine_pose_core`` does (Adam on the twist and the
 exposure, the pose re-anchored each step, stop once |delta| < 1e-4) in
-a Python loop. ``fused_renders`` counts the renders through ``render_fused`` (each one
-K3 -> K1, and K2 -> K4 in its backward), ``refine_calls`` the refined
-frames and ``refine_steps`` their steps, each of which reads |delta| back
-to the host once.
+a Python loop.
 
-Not ported yet: the non-metric-depth branch (``_filled_depth`` and
-``_deform_projective``), the GUI.
+With ``gui`` set, each keyframe ends with a snapshot pushed to the file
+GUI (``gui/file_gui.py``): a forward render of the keyframe, its
+uncertainty, the keyframe trajectory and a host copy of the map.
+
+Counters: ``fused_renders`` counts the renders through ``render_fused``
+(each one K3 -> K1, and K2 -> K4 in its backward), ``gui_renders`` those of
+them without a backward (the GUI's), ``refine_calls`` the refined frames
+and ``refine_steps`` their steps, each of which reads |delta| back to the
+host once; ``fills`` the depth fills, ``invalid_keyframes`` the keyframes
+skipped for too few valid depths, ``projective_deforms`` the projective
+deformations.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..gui.file_gui import FileGui, GaussianPacket
 from ..models.uncertainty import UncertaintyMLP, init_uncertainty_mlp
 from ..ops import lie
 from ..ops.rasterizer import render, render_fused
+from ..ops.sh import sh_to_rgb
+from ..ops.ssim import median
 from ..utils.precision import float32_convs
 from ..utils.printer import PRINTER, FontColor
 from ..utils.profiling import TIMER
+from . import depth_fill
 from . import gaussian_map as gm
 from . import keyframe_store as kstore
 from . import losses, pcd, viewpoints
@@ -82,6 +100,14 @@ def _np_rel_translation_norms(poses):
     return np.linalg.norm(t_rel, axis=-1)
 
 
+def _moved_rotation(p: gm.GaussianParams, mask, T):
+    """The (w, x, y, z) rotations premultiplied by T's where mask is set."""
+    q = gm.get_rotation_xyzw(p)
+    newq = lie.quat_mul(T[3:7].expand_as(q), q)
+    return torch.where(mask, torch.cat([newq[:, 3:4], newq[:, :3]], -1),
+                       p.rotation)
+
+
 @torch.no_grad()
 def _deform_rigid(gmap: gm.GaussianMap, kf_id: int, w2c_new, w2c_old):
     """Rigidly move the Gaussians anchored at keyframe kf_id to its new
@@ -90,15 +116,48 @@ def _deform_rigid(gmap: gm.GaussianMap, kf_id: int, w2c_new, w2c_old):
     p = gmap.params
     mask = ((gmap.aux.kf_id == kf_id) & gmap.aux.alive)[:, None]
     xyz = torch.where(mask, lie.se3_act(T[None], p.xyz), p.xyz)
-    q = gm.get_rotation_xyzw(p)
-    newq = lie.quat_mul(T[3:7].expand_as(q), q)
-    rot = torch.where(mask, torch.cat([newq[:, 3:4], newq[:, :3]], -1),
-                      p.rotation)
+    p.rotation.copy_(_moved_rotation(p, mask, T))
     p.xyz.copy_(xyz)
-    p.rotation.copy_(rot)
     for moments in (gmap.mu, gmap.nu):
         moments.xyz.zero_()
         moments.rotation.zero_()
+
+
+@torch.no_grad()
+def _deform_projective(gmap: gm.GaussianMap, kf_id: int, w2c_new, w2c_old,
+                       depth_new, depth_old, intrinsics):
+    """Move the Gaussians anchored at keyframe kf_id to its new pose and
+    depth, in place: each centre is scaled along its ray by 1 + (new depth
+    - old depth) / z at its pixel (round half to even) and its log-scales
+    shifted by the log of that factor; rigid where either depth is 0 or the
+    factor is not positive. Zeroes the xyz, rotation and scaling Adam
+    moments."""
+    p = gmap.params
+    mask = ((gmap.aux.kf_id == kf_id) & gmap.aux.alive)[:, None]
+    H, W = depth_new.shape
+    fx, fy, cx, cy = intrinsics.unbind()
+    cam_old = lie.se3_act(w2c_old[None], p.xyz)
+    z = torch.clamp(cam_old[:, 2], min=1e-6)
+    px = torch.clamp(torch.round(fx * cam_old[:, 0] / z + cx).long(), 0, W - 1)
+    py = torch.clamp(torch.round(fy * cam_old[:, 1] / z + cy).long(), 0, H - 1)
+    d_new, d_old = depth_new[py, px], depth_old[py, px]
+    rescale = 1.0 + (d_new - d_old) / z
+    rigid = (d_new == 0) | (d_old == 0) | (rescale <= 0)
+    rescale = torch.where(rigid, 1.0, rescale)
+
+    world_scaled = lie.se3_act(lie.se3_inv(w2c_old)[None],
+                               cam_old * rescale[:, None])
+    T = lie.se3_inv(lie.se3_mul(lie.se3_inv(w2c_old), w2c_new))
+    xyz = torch.where(mask, lie.se3_act(T[None], world_scaled), p.xyz)
+    scaling = torch.where(mask, p.scaling + torch.log(rescale)[:, None],
+                          p.scaling)
+    p.rotation.copy_(_moved_rotation(p, mask, T))
+    p.xyz.copy_(xyz)
+    p.scaling.copy_(scaling)
+    for moments in (gmap.mu, gmap.nu):
+        moments.xyz.zero_()
+        moments.rotation.zero_()
+        moments.scaling.zero_()
 
 
 class _MLPAdam:
@@ -166,10 +225,6 @@ class Mapper:
         self.gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.draw_fn = draw_fn
 
-        if not state.metric_depth_reg:
-            raise NotImplementedError(
-                "the non-metric-depth mapping branch (depth fill, projective "
-                "deformation) is not ported yet")
         ht, wd = state.images.shape[1:3]
         self.image_size = (ht, wd)
         self.intrinsics_full = state.store.intrinsics.to(self.device) * 8.0
@@ -208,8 +263,16 @@ class Mapper:
         self.video_idxs: List[int] = []
         self.frame_idxs: List[int] = []
         self.cam_w2c_old: Dict[int, np.ndarray] = {}
-        self.fused_renders = 0
+        self.fused_renders = self.gui_renders = 0
         self.refine_calls = self.refine_steps = 0
+        self.fills = self.invalid_keyframes = self.projective_deforms = 0
+
+        self.gui = None
+        if cfg.get("gui", False):
+            out = cfg.get("data", {}).get("output", "./output")
+            self.gui = FileGui(os.path.join(out, str(cfg.get("scene",
+                                                             "scene"))),
+                               http_port=cfg.get("_gui_http_port"))
 
     # ------------------------------------------------------------------
 
@@ -222,12 +285,18 @@ class Mapper:
         return torch.randn(shape, generator=self.gen, device=self.device)
 
     def _make_viewpoint(self, video_idx: int) -> bool:
-        """Write keyframe video_idx into the view store (metric-depth
-        branch). Returns True if the keyframe is invalid."""
+        """Write keyframe video_idx into the view store. Returns True if
+        the keyframe is invalid (without metric depth: too few valid
+        frontend depths), and then writes nothing."""
         store = self.state.store
-        depth, _, c2w = kstore.get_depth_and_pose(
+        depth, mask, c2w = kstore.get_depth_and_pose(
             store, video_idx, self.state.metric_depth_reg)
         w2c = lie.se3_inv(c2w)
+        if not self.state.metric_depth_reg:
+            depth, invalid = self._filled_depth(video_idx, depth, mask)
+            if invalid:
+                self.invalid_keyframes += 1
+                return True
         color = torch.as_tensor(self.state.images[video_idx],
                                 dtype=torch.float32, device=self.device)
         feats = (torch.as_tensor(self.state.dino_feats[video_idx],
@@ -239,6 +308,22 @@ class Mapper:
         self.cam_w2c_old[video_idx] = w2c.cpu().numpy()
         self.depth_dict[video_idx] = depth
         return False
+
+    def _filled_depth(self, video_idx: int, est_depth, mask):
+        """The Splat-SLAM fill of one keyframe's frontend depth with its
+        mono prior (1 / mono_disps_up where that is > 0); a valid fill's
+        scale and shift go into the store. Returns (depth (H, W),
+        invalid)."""
+        store = self.state.store
+        with TIMER.phase("map.depth_fill", sync=True):
+            filled, invalid, scale, shift = depth_fill.splat_slam_fill(
+                est_depth, mask, kstore._inv_pos(
+                    store.mono_disps_up[video_idx]))
+        self.fills += 1
+        if not invalid:
+            store.depth_scale[video_idx] = scale
+            store.depth_shift[video_idx] = shift
+        return filled, invalid
 
     # ------------------------------------------------------------------
     # covisibility window
@@ -500,12 +585,14 @@ class Mapper:
             self.uncer_adam.step(g_mlp, lr=up["lr"], wd=up["weight_decay"])
         return total.detach(), out.overflow
 
-    def _render_fn(self):
+    def _render_fn(self, backward=True):
         """The optimizing render: render_fused (its kernels) on the card,
-        the plain render on the CPU; counts the fused calls."""
+        the plain render on the CPU; counts the fused calls, and apart
+        those that run no backward."""
         if self.device.type != "cuda":
             return render
         self.fused_renders += 1
+        self.gui_renders += not backward
         return render_fused
 
     # ------------------------------------------------------------------
@@ -679,9 +766,48 @@ class Mapper:
                                     iters=self.mapping_itr_num)
         if split:
             self.map_opt_online(self.current_window, iters=1)
+        if self.gui is not None:
+            with TIMER.phase("map.gui_push", sync=True):
+                self._send_to_gui(video_idx)
+
+    @torch.no_grad()
+    def _send_to_gui(self, video_idx: int):
+        """Push one snapshot to the file GUI: keyframe video_idx and its
+        forward render, the MLP's uncertainty on its features, the
+        keyframes' camera centres and the alive map."""
+        p = self.gaussians.params
+        out = self._render_fn(backward=False)(
+            p.xyz, gm.get_scaling(p), gm.get_rotation_xyzw(p),
+            gm.get_opacity(p), gm.get_sh(p), self.vstore.w2c[video_idx],
+            self.intrinsics_full, self.image_size,
+            alive=self.gaussians.aux.alive,
+            capacity=self.render_list_capacity, chunk=64, bin_kw=self.bin_kw)
+        unc = None
+        if self.uncertainty_aware:
+            unc = self.uncer_mlp(self.vstore.features[video_idx].to(
+                torch.float32)).cpu().numpy()
+        kfs = [v for v in self.video_idxs if self.is_kf.get(v, False)]
+        traj = (lie.se3_inv(self.vstore.w2c[kfs])[:, :3].cpu().numpy()
+                if kfs else None)
+        alive = self.gaussians.aux.alive
+        self.gui.push(GaussianPacket(
+            frame_idx=video_idx,
+            gt_color=self.vstore.colors[video_idx].to(
+                torch.float32).cpu().numpy(),
+            rendered_color=out.color.cpu().numpy(),
+            rendered_depth=out.depth.cpu().numpy(),
+            uncertainty=unc, traj_xyz=traj,
+            window=list(self.current_window),
+            n_gaussians=gm.num_alive(self.gaussians),
+            map_xyz=p.xyz[alive].cpu().numpy(),
+            map_rgb=sh_to_rgb(p.f_dc[:, 0])[alive].cpu().numpy(),
+            map_scale=gm.get_scaling(p).mean(-1)[alive].cpu().numpy()))
 
     def _update_keyframes_from_frontend(self):
-        """Re-sync moved keyframe poses and deform their Gaussians."""
+        """Re-sync moved keyframe poses and deform their Gaussians; without
+        metric depth each moved keyframe is filled again, and its depth,
+        median and deformation follow the new fill (a keyframe whose fill
+        is now invalid keeps its depth and deforms rigidly)."""
         # a copy: rows are kept as the old poses, and BA moves the store
         poses_host = self.state.store.poses.cpu().numpy().copy()
         for video_idx in self.video_idxs:
@@ -692,8 +818,26 @@ class Mapper:
                 continue
             w2c_new = torch.as_tensor(poses_host[video_idx],
                                       device=self.device)
+            w2c_old = torch.as_tensor(w2c_old, device=self.device)
+            depth_new = None
+            if not self.state.metric_depth_reg:
+                d, m, _ = kstore.get_depth_and_pose(self.state.store,
+                                                    video_idx, False)
+                filled, invalid = self._filled_depth(video_idx, d, m)
+                depth_new = None if invalid else filled
             viewpoints.update_pose(self.vstore, video_idx, w2c_new)
-            if self.deform_gaussians:
-                _deform_rigid(self.gaussians, video_idx, w2c_new,
-                              torch.as_tensor(w2c_old, device=self.device))
+            if self.deform_gaussians and depth_new is None:
+                _deform_rigid(self.gaussians, video_idx, w2c_new, w2c_old)
+            elif self.deform_gaussians:
+                _deform_projective(self.gaussians, video_idx, w2c_new,
+                                   w2c_old, depth_new,
+                                   self.depth_dict[video_idx],
+                                   self.intrinsics_full)
+                self.projective_deforms += 1
+            if depth_new is not None:
+                # the depth follows the fill whether or not the Gaussians
+                # deform, as in the reference
+                self.vstore.depths[video_idx] = depth_new
+                self.vstore.depth_med[video_idx] = median(depth_new)
+                self.depth_dict[video_idx] = depth_new
             self.cam_w2c_old[video_idx] = poses_host[video_idx]

@@ -96,6 +96,13 @@ class SLAM:
                 "parallel.n_devices > 1 (--mesh): the multi-device mode is "
                 "not ported yet")
         debug.maybe_enable_from_cfg(cfg)
+        # pause / stop / checkpoint requests; the HTTP endpoint only when
+        # asked for (gui_http_port, or gui on), its port published for the
+        # file GUI's buttons
+        self.control = ControlChannel(
+            self.save_dir, http_port=cfg.get(
+                "gui_http_port", 0 if cfg.get("gui", False) else None))
+        cfg["_gui_http_port"] = self.control.http_port
         ht, wd = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
         self.state = SlamState.create(
             cfg, ht, wd, np.asarray(stream.intrinsic, np.float64),
@@ -138,11 +145,6 @@ class SLAM:
             else None, train_frac_fix=train_frac)
         self.ba_freq = t["backend"]["ba_freq"]
         self.enable_online_ba = t["frontend"]["enable_online_ba"]
-        # pause / stop / checkpoint requests; the HTTP endpoint only when
-        # asked for (gui_http_port, or gui on)
-        self.control = ControlChannel(
-            self.save_dir, http_port=cfg.get(
-                "gui_http_port", 0 if cfg.get("gui", False) else None))
 
     # ------------------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""PNG decoding with the standard library and numpy (no cv2, no PIL).
+"""PNG decoding and encoding with the standard library and numpy (no cv2,
+no PIL).
 
 ``read_png(path)`` returns the samples as stored: (H, W) for grey, (H, W, 3)
 RGB, (H, W, 4) RGBA; uint8 for 8-bit files, uint16 for 16-bit ones (PNG
@@ -12,6 +13,9 @@ are undone in one pass over their anti-diagonals: every pixel of an
 anti-diagonal (row + column constant) depends only on earlier ones. With
 each row shifted by its index ("skewed"), an anti-diagonal is one
 contiguous slice, and k rows take k + W - 1 vectorized steps.
+
+``write_png(path, a)`` writes uint8 (H, W) grey or (H, W, 3) RGB, or uint16
+(H, W) grey, with the row filters given taken in turn (Up by default).
 """
 
 from __future__ import annotations
@@ -67,6 +71,58 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         px = px.view(">u2").astype(np.uint16)
     px = px.reshape(h, w, ch)
     return px[..., 0] if ch == 1 else px
+
+
+def encode_png(a: np.ndarray, filters=(2,)) -> bytes:
+    """uint8 (H, W) / (H, W, 3) or uint16 (H, W) -> PNG bytes; row r is
+    filtered with filters[r % len(filters)] (0 None, 1 Sub, 2 Up, 3 Avg,
+    4 Paeth)."""
+    h, w = a.shape[:2]
+    ctype = {2: 0, 3: 2}[a.ndim]
+    if a.dtype == np.uint16 and ctype == 0:
+        depth, x = 16, a.astype(">u2")
+    elif a.dtype == np.uint8 and a.shape[2:] in ((), (3,)):
+        depth, x = 8, a
+    else:
+        raise ValueError(f"cannot write a {a.dtype} image of shape {a.shape} "
+                         "(uint8 grey or RGB, or uint16 grey)")
+    x = np.ascontiguousarray(x).view(np.uint8).reshape(h, -1).astype(np.int16)
+    bpp = x.shape[1] // w
+    up = np.concatenate([np.zeros_like(x[:1]), x[:-1]])
+    left = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+
+    def predictor(k):
+        if k == 1:
+            return left
+        if k == 2:
+            return up
+        if k == 3:
+            return (left + up) >> 1
+        upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        return np.where((pa <= pb) & (pa <= pc), left,
+                        np.where(pb <= pc, up, upleft))
+    f = np.asarray(filters, np.int16)[np.arange(h) % len(filters)]
+    pred = np.zeros_like(x)
+    for k in set(filters) - {0}:
+        rows = f == k
+        pred[rows] = predictor(k)[rows]
+    body = np.concatenate([f[:, None], (x - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+    return (SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                         0))
+            + chunk(b"IDAT", zlib.compress(body.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, a: np.ndarray, filters=(2,)) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(a, filters))
 
 
 def unfilter(filt: np.ndarray, ftype: np.ndarray) -> np.ndarray:
