@@ -77,8 +77,25 @@ Phases, each printing its own lines:
      fill's scale and shift against the truth and a float64 solve; K1 and
      K3 launched once per render_fused call, K2 and K4 once per call with
      a backward (the GUI's renders run none);
-  10. one JSON line describing every kernel;
-  11. the card again, then the last line {"ok": true, "device": {...}}.
+  10. the data path on the card's host. (a) The native library
+     (wildgs_slam_tpu_torch/native: the port's own PNG and JPEG decoders,
+     built with g++ in phase 2 beside nvcc): compiler, flags, seconds,
+     size. (b) The fixtures of tests/data/torch_jpeg decoded and held
+     equal to the cv2 decodes committed beside them. (c) The iPhone
+     configuration (configs/Dynamic/Wild_SLAM_iPhone/horse.yaml: 1920x1440
+     raw frames, 480x360 out, the RGB-folder reader) on 16 frames of the
+     system phase's scene written as baseline 4:2:0 JPEGs by the script's
+     own numpy encoder, through run.build() with phase 8's seeded prior
+     checkpoints and SLAM.run() under the oracle (the scene's poses given
+     to the reader, which has none). Gates: frame 0's decode at least
+     35 dB PSNR from the rendered image, keyframe ATE < 1 cm, K1 and K3
+     launched once per render_fused call and K2 and K4 once per call with
+     a backward. (d) ms per frame of (c)'s reader and phase 8's PNG
+     sequence, plain and through PrefetchingStream (2 workers, lookahead
+     4; also with a pause before each frame), every prefetched frame
+     bit-equal to the plain one;
+  11. one JSON line describing every kernel;
+  12. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -101,6 +118,7 @@ import json
 import os
 import pickle
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -133,6 +151,7 @@ from wildgs_slam_tpu_torch.utils.eval_traj import (  # noqa: E402
     ape_statistics, read_metric)
 from wildgs_slam_tpu_torch.utils.png import read_png, write_png  # noqa
 from wildgs_slam_tpu_torch.utils.profiling import TIMER  # noqa: E402
+from wildgs_slam_tpu_torch.utils.resample import resize_u8  # noqa: E402
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
                       "tum_dynamic.yaml")
@@ -511,13 +530,15 @@ def small_render_check(dev):
 # phase 5: the mapper's keyframe path
 # ---------------------------------------------------------------------------
 
-def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None):
+def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None, first=0,
+               dino=True):
     """A textured box room seen by a camera moving through it: per keyframe
     an image, an exact metric depth and a world->camera pose, plus random
-    DINO features; all from numpy with a seed. `step` scales the motion
-    between consecutive frames. `camera` ((H, W), (fx, fy, cx, cy)) renders
-    at that size and those intrinsics instead of the config's output
-    camera."""
+    DINO features (None without `dino`); all from numpy with a seed. `step`
+    scales the motion between consecutive frames; the frames are first,
+    first + 1, ... of the trajectory. `camera` ((H, W), (fx, fy, cx, cy))
+    renders at that size and those intrinsics instead of the config's
+    output camera."""
     cam = cfg["cam"]
     if camera is None:
         H, W = cam["H_out"], cam["W_out"]
@@ -535,7 +556,7 @@ def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None):
     rays_c = np.stack([(xx - cx) / fx, (yy - cy) / fy, np.ones_like(xx)], -1)
     half = np.array([3.0, 2.0, 5.0])
     frames = []
-    for i in range(n_kf):
+    for i in range(first, first + n_kf):
         u = step * i
         xi = np.array([0.08 * u, 0.02 * np.sin(u), 0.04 * u,
                        0.02 * np.cos(u), 0.12 * u, 0.0], np.float32)
@@ -556,9 +577,9 @@ def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None):
                         0.5 + 0.25 * np.sin(4.0 * p[..., 1] + 0.7 * p[..., 2])
                         * np.cos(1.3 * p[..., 0])], -1)
         img = np.clip(img + 0.01 * rng.normal(size=img.shape), 0, 1)
-        dino = rng.normal(size=(H // 14, W // 14, 384))
-        frames.append((w2c, depth, img.astype(np.float32),
-                       dino.astype(np.float32)))
+        feats = (rng.normal(size=(H // 14, W // 14, 384)).astype(np.float32)
+                 if dino else None)
+        frames.append((w2c, depth, img.astype(np.float32), feats))
     return (H, W), intr, frames
 
 
@@ -1372,11 +1393,13 @@ def write_tum_sequence(cfg, root):
     return rgb0
 
 
-def run_entry(argv, label, cfg, dev, priors=True):
+def run_entry(argv, label, cfg, dev, priors=True, n_frames=ENTRY_FRAMES,
+              give_poses=False):
     """run.build(argv), the oracle (and with `priors` the scene's exact
-    depth prior) put in between, then SLAM.run(); returns (slam,
-    resume_path, record). Without `priors` build must print its one
-    fallback line."""
+    depth prior; with `give_poses` the scene's poses as the reader's ground
+    truth) put in between, then SLAM.run() on the first `n_frames` frames
+    of the scene; returns (slam, resume_path, record). Without `priors`
+    build must print its one fallback line."""
     from wildgs_slam_tpu_torch import run as entry
 
     wall0 = time.time()
@@ -1389,8 +1412,11 @@ def run_entry(argv, label, cfg, dev, priors=True):
     if fallbacks != (0 if priors else 1):
         raise AssertionError(f"{label}: {fallbacks} '{FALLBACK_LINE}' lines")
     H, W = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
-    _, _, truth = room_scene(cfg, ENTRY_FRAMES, seed=3, step=SYSTEM_STEP,
+    _, _, truth = room_scene(cfg, n_frames, seed=3, step=SYSTEM_STEP,
                              camera=((H, W), tuple(slam.stream.intrinsic)))
+    if give_poses:
+        slam.stream.poses = [lie.se3_matrix(lie.se3_inv(torch.as_tensor(
+            f[0]))).numpy() for f in truth]
     if priors:
         # the depth prior: the scene's depth of the frame being tracked
         # (the reader's timestamps are the frame indices)
@@ -1408,7 +1434,7 @@ def run_entry(argv, label, cfg, dev, priors=True):
                                device=dev)
 
     def gt_injection(store, counter):
-        ts = store.timestamp.long().clamp(0, ENTRY_FRAMES - 1)
+        ts = store.timestamp.long().clamp(0, n_frames - 1)
         return poses_gt[ts], disps_gt[ts]
     slam.frontend.graph.gt_injection = slam.backend.gt_injection = \
         gt_injection
@@ -1866,6 +1892,363 @@ def nonmetric_phase(dev, ckpt):
     return {k: a[k] + b[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the data path on the card's host (the native library's own PNG
+# and JPEG decoders, the prefetching loader), the iPhone configuration read
+# from JPEGs
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(HERE, "build", "chip_smoke", "jpeg")
+FIXTURES = os.path.join(HERE, "tests", "data", "torch_jpeg")
+IPHONE_CONFIG = os.path.join(HERE, "configs", "Dynamic", "Wild_SLAM_iPhone",
+                             "horse.yaml")
+IPHONE_FRAMES = 16       # frames of the system scene at 1920x1440 as JPEGs
+JPEG_QUALITY = 95
+JPEG_PSNR_MIN = 35.0     # dB, frame 0's decode against the rendered image
+PREFETCH = dict(n_threads=2, lookahead=4)
+LOOP_PAUSE_S = 0.25      # other work between two frames (a sleep)
+
+# ITU-T T.81 Annex K: the example quantization tables (natural order),
+# scaled by quality as libjpeg's jpeg_quality_scaling, and the Huffman
+# tables K.3-K.6 (code counts per length 1-16, then the symbols)
+_Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32)
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50,
+    43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46,
+    53, 60, 61, 54, 47, 55, 62, 63])
+_AC_SYMBOLS_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_SYMBOLS_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+_HUFFMAN = {   # (class, table id): (counts, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], bytes(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d],
+             _AC_SYMBOLS_LUMA),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77],
+             _AC_SYMBOLS_CHROMA),
+}
+_BIT_LENGTH = np.array([int(i).bit_length() for i in range(2048)])
+
+
+def _huffman_codes(counts, symbols):
+    """Canonical codes: symbol -> (code, length) as arrays over 0..255."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def jpeg_encode(rgb: np.ndarray, quality: int = JPEG_QUALITY) -> bytes:
+    """A baseline 4:2:0 JFIF file of a uint8 RGB image, as libjpeg writes
+    one at `quality` with the standard tables: BT.601 YCbCr, 2x2 box
+    chroma, an orthonormal float DCT, all in numpy (vectorised over the
+    blocks, the Huffman symbols and the bit packing)."""
+    h, w = rgb.shape[:2]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qt = [np.clip((q * scale + 50) // 100, 1, 255) for q in (_Q_LUMA,
+                                                              _Q_CHROMA)]
+    x = np.pad(rgb.astype(np.float64), ((0, -h % 16), (0, -w % 16), (0, 0)),
+               mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    planes = [0.299 * r + 0.587 * g + 0.114 * b,
+              -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+              0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    H, W = x.shape[:2]
+    for c in (1, 2):
+        planes[c] = planes[c].reshape(H // 2, 2, W // 2, 2).mean((1, 3))
+    k = np.arange(8)
+    C = np.sqrt(np.where(k == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
+        (2 * k[None] + 1) * k[:, None] * np.pi / 16)
+
+    def quantised(plane, q):
+        """(ph/8, pw/8, 64) quantised DCT coefficients in zigzag order:
+        C X C^T of each block as two large products."""
+        ph, pw = plane.shape
+        blk = (plane - 128).reshape(ph // 8, 8, pw // 8, 8).transpose(
+            0, 2, 1, 3).reshape(-1, 8, 8)
+        d = (blk.reshape(-1, 8) @ C.T).reshape(-1, 8, 8)          # X C^T
+        d = (d.transpose(0, 2, 1).reshape(-1, 8) @ C.T).reshape(
+            -1, 8, 8).transpose(0, 2, 1)                          # C (X C^T)
+        d = d.reshape(ph // 8, pw // 8, 64)
+        return np.round(d / q).astype(np.int64)[..., _ZIGZAG]
+    my, mx = H // 16, W // 16
+    y = quantised(planes[0], qt[0]).reshape(my, 2, mx, 2, 64).transpose(
+        0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
+    cb = quantised(planes[1], qt[1]).reshape(my * mx, 1, 64)
+    cr = quantised(planes[2], qt[1]).reshape(my * mx, 1, 64)
+    comp = np.array([0, 0, 0, 0, 1, 2])
+    Z = np.concatenate([y, cb, cr], 1)                    # MCU order
+    for c in range(3):                                    # DC differences
+        dc = Z[:, comp == c, 0].reshape(-1)
+        Z[:, comp == c, 0] = np.diff(dc, prepend=0).reshape(my * mx, -1)
+    Z = Z.reshape(-1, 64)
+    cls = np.tile(np.minimum(comp, 1), my * mx)           # luma 0, chroma 1
+    codes = {key: _huffman_codes(*v) for key, v in _HUFFMAN.items()}
+
+    def coded(tc, tables, sym, value):
+        """(Huffman code of sym, then `s` bits of value) as one word."""
+        s = _BIT_LENGTH[np.abs(value)]
+        extra = np.where(value >= 0, value, value + (1 << s) - 1)
+        code = np.choose(tables, [codes[(tc, 0)][0][sym],
+                                  codes[(tc, 1)][0][sym]])
+        length = np.choose(tables, [codes[(tc, 0)][1][sym],
+                                    codes[(tc, 1)][1][sym]])
+        return (code << s) | extra, length + s
+    nb = len(Z)
+    events = []                                 # (block, order, word, bits)
+    s_dc = _BIT_LENGTH[np.abs(Z[:, 0])]
+    events.append((np.arange(nb), np.zeros(nb, np.int64),
+                   *coded(0, cls, s_dc, Z[:, 0])))
+    bi, ki = np.nonzero(Z[:, 1:])
+    kk = ki + 1
+    first = np.r_[True, bi[1:] != bi[:-1]]
+    prev = np.where(first, 0, np.r_[0, kk[:-1]])
+    run = kk - prev - 1
+    v = Z[bi, kk]
+    sym = (run % 16) * 16 + _BIT_LENGTH[np.abs(v)]
+    events.append((bi, 2 * kk, *coded(1, cls[bi], sym, v)))
+    n_zrl = run // 16
+    zb = np.repeat(bi, n_zrl)
+    events.append((zb, np.repeat(2 * kk - 1, n_zrl),
+                   *coded(1, cls[zb], np.full(len(zb), 0xF0), np.zeros(
+                       len(zb), np.int64))))
+    last = np.zeros(nb, np.int64)
+    last[bi] = kk                                   # kk ascends in a block
+    eb = np.flatnonzero(last < 63)
+    events.append((eb, np.full(len(eb), 200), *coded(
+        1, cls[eb], np.zeros(len(eb), np.int64), np.zeros(len(eb),
+                                                          np.int64))))
+    block, order, word, nbits = (np.concatenate(a) for a in zip(*events))
+    o = np.lexsort((order, block))
+    word, nbits = word[o], nbits[o]
+    ev = np.repeat(np.arange(len(nbits)), nbits)
+    bit = np.arange(int(nbits.sum())) - np.repeat(np.cumsum(nbits) - nbits,
+                                                  nbits)
+    bits = ((word[ev] >> (nbits[ev] - 1 - bit)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+    out = b"\xff\xd8" + segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    for i, q in enumerate(qt):
+        out += segment(0xDB, bytes([i]) + q[_ZIGZAG].astype(np.uint8)
+                       .tobytes())
+    out += segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                   + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for (tc, th), (counts, symbols) in _HUFFMAN.items():
+        out += segment(0xC4, bytes([tc << 4 | th] + counts) + symbols)
+    out += segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return out + data + b"\xff\xd9"
+
+
+def write_iphone_sequence(cfg, root):
+    """IPHONE_FRAMES frames of the system phase's room scene rendered at
+    the configuration's raw camera (1920x1440) and written as baseline
+    4:2:0 JPEGs by jpeg_encode under rgb/, several frames at once on
+    threads. Returns frame 0's rendered RGB, the seconds and the bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cam = cfg["cam"]
+    os.makedirs(os.path.join(root, "rgb"))
+    camera = ((cam["H"], cam["W"]),
+              (cam["fx"], cam["fy"], cam["cx"], cam["cy"]))
+
+    def frame(i):
+        _, _, [(_, _, img, _)] = room_scene(cfg, 1, seed=3 + i,
+                                            step=SYSTEM_STEP, camera=camera,
+                                            first=i, dino=False)
+        rgb = np.round(img * 255).astype(np.uint8)
+        data = jpeg_encode(rgb)
+        with open(os.path.join(root, "rgb", f"{i:05d}.jpg"), "wb") as fh:
+            fh.write(data)
+        return rgb if i == 0 else None, len(data)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        out = list(pool.map(frame, range(IPHONE_FRAMES)))
+    return out[0][0], time.perf_counter() - t0, sum(n for _, n in out)
+
+
+def fixture_check():
+    """10(b): the committed fixtures decoded on this host against the cv2
+    decodes beside them (read back by the numpy PNG decoder)."""
+    from wildgs_slam_tpu_torch import native
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as fh:
+        entries = json.load(fh)
+    for e in entries:
+        ref = read_png(os.path.join(FIXTURES, e["decode"])).reshape(
+            e["shape"]).astype(e["dtype"])
+        path = os.path.join(FIXTURES, e["file"])
+        got = (native.read_color(path) if e["mode"] == "color"
+               else native.read_image(path))
+        if not (got.dtype == ref.dtype and got.shape == ref.shape
+                and np.array_equal(got, ref)):
+            raise AssertionError(f"fixture {e['file']}: the native decode "
+                                 "differs from the committed cv2 decode")
+    print(f"native: {len(entries)} fixtures equal their committed cv2 "
+          f"decodes: {json.dumps([e['file'] for e in entries])}")
+
+
+def loader_times(label, ds):
+    """10(d): ms per frame of the reader, then of PrefetchingStream over it
+    (a tight loop, and with LOOP_PAUSE_S of other work, a sleep, before
+    each frame: the wait only); every prefetched frame bit-equal to the
+    reader's."""
+    from wildgs_slam_tpu_torch.utils.datasets import PrefetchingStream
+
+    n = len(ds)
+
+    def timed(get, pause=0.0):
+        frames, ms = [], []
+        for i in range(n):
+            if pause:
+                time.sleep(pause)
+            t0 = time.perf_counter()
+            frames.append(get(i))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return frames, ms
+    plain, ms_plain = timed(ds.__getitem__)
+    rows = {"plain": ms_plain}
+    for name, pause in (("prefetch", 0.0), ("prefetch_paused", LOOP_PAUSE_S)):
+        stream = PrefetchingStream(ds, **PREFETCH)
+        frames, rows[name] = timed(stream.__getitem__, pause)
+        stream.close()
+        for a, b in zip(frames, plain):
+            if not (a[0] == b[0] and all(
+                    (x is None and y is None) or np.array_equal(x, y)
+                    for x, y in zip(a[1:], b[1:]))):
+                raise AssertionError(f"{label}: {name} frame {a[0]} differs "
+                                     "from the reader's")
+    out = {k: (round(v[0], 3), round(float(np.mean(v[1:])), 3))
+           for k, v in rows.items()}
+    print(f"data.load {label}: {n} frames, ms per frame [first, mean of the "
+          f"rest]: {json.dumps(out)} (prefetch: {PREFETCH['n_threads']} "
+          f"workers, lookahead {PREFETCH['lookahead']}; paused: "
+          f"{LOOP_PAUSE_S} s of sleep before each frame, the wait timed; "
+          f"every prefetched frame equal to the reader's)")
+
+
+def jpeg_phase(dev, ckpt):
+    """Phase 10: the native build, the fixtures, the iPhone configuration
+    from JPEGs through run.build() and SLAM.run(), and the loaders' times;
+    returns the kernels' launches."""
+    from wildgs_slam_tpu_torch import native
+    from wildgs_slam_tpu_torch.utils import datasets as tds
+
+    info = native.build_library()
+    print(f"native build: {info['compiler']}; flags {info['flags']}; "
+          f"{info['seconds']:.2f} s (phase 2, beside nvcc); "
+          f"{os.path.basename(info['path'])} {info['bytes']} bytes")
+    fixture_check()
+
+    cfg = load_config(IPHONE_CONFIG)
+    cam = cfg["cam"]
+    seq = os.path.join(JPEG_DIR, "iphone")
+    out = os.path.join(JPEG_DIR, "out")
+    for d in (seq, out):
+        shutil.rmtree(d, ignore_errors=True)
+    rgb0, t_write, nbytes = write_iphone_sequence(cfg, seq)
+    first = native.read_color(os.path.join(seq, "rgb", "00000.jpg"))
+    mse = float(np.mean((first.astype(np.float64) - rgb0) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / mse)
+    print(f"iphone: {IPHONE_FRAMES} frames of the system scene at "
+          f"{cam['W']}x{cam['H']} (fx {cam['fx']:.1f}) written as baseline "
+          f"4:2:0 JPEGs (quality {JPEG_QUALITY}, the script's encoder) in "
+          f"{t_write:.1f} s, {nbytes / 2 ** 20:.2f} MiB; frame 0 decoded "
+          f"{first.shape}, PSNR {psnr:.2f} dB against the rendered image "
+          f"(gate {JPEG_PSNR_MIN})")
+    if first.shape != rgb0.shape or not psnr >= JPEG_PSNR_MIN:
+        raise AssertionError(f"iphone frame 0: {first.shape}, {psnr} dB")
+    tr_cfg = cfg["mapping"]["Training"]
+    reduced = {k: f"{(cfg['mapping'] if k == 'final_refine_iters' else tr_cfg)[k]}"
+               f" -> {v}" for k, v in ENTRY_CUTS.items()}
+    reduced["frames"] = (f"{IPHONE_FRAMES}, every one a keyframe; "
+                         "--fast_mode")
+    reduced["poses"] = ("the RGB-folder layout has no ground truth: the "
+                        "scene's poses are given to the reader after build()")
+    reduced["priors"] = "as phase 8 (seeded DINOv2, the scene's exact depth)"
+    print("iphone reduced:", json.dumps(reduced))
+    spec = {"inherit_from": IPHONE_CONFIG, "scene": "iphone",
+            "verbose": False, "data": {"input_folder": seq, "output": out},
+            "tracking": {"force_keyframe_every_n_frames": 1,
+                         "motion_filter": {"thresh": 1e9}},
+            "mapping": {"final_refine_iters": ENTRY_CUTS[
+                "final_refine_iters"],
+                "Training": {k: ENTRY_CUTS[k] for k in (
+                    "init_itr_num", "mapping_itr_num")}}}
+    cfg_path = os.path.join(JPEG_DIR, "iphone.yaml")
+    with open(cfg_path, "w") as fh:
+        json.dump(spec, fh)          # JSON is YAML
+    slam, _, rec = run_entry(
+        [cfg_path, "--device", str(dev), "--pretrained", ckpt,
+         "--fast_mode"], "iphone", cfg, dev, n_frames=IPHONE_FRAMES,
+        give_poses=True)
+    stream = slam.stream
+    if not (type(stream).__name__ == "RGB_NoPose" and len(stream)
+            == IPHONE_FRAMES and stream[0][1].shape == (
+                cam["H_out"], cam["W_out"], 3)):
+        raise AssertionError("iphone: not the RGB-folder reader at 360x480")
+    # terminate evaluates no trajectory for the RGB-folder reader (as the
+    # JAX package and upstream): the port's own evaluation, on the poses
+    # given to the reader
+    kf = slam.kf_traj_eval(os.path.join(out, "iphone", "kf_traj"))["rmse"]
+    print(f"iphone: {stream.W}x{stream.H} -> {stream.W_out}x{stream.H_out}; "
+          f"keyframe ATE rmse {kf * 100:.4f} cm (SLAM.kf_traj_eval); "
+          f"{gm.num_alive(slam.mapper.gaussians)} Gaussians; {card_line()}")
+    if not kf < ATE_MAX:
+        raise AssertionError(f"iphone keyframe ATE {kf} m >= {ATE_MAX} m")
+    del slam
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tum = os.path.join(ENTRY_DIR, "tum_sequence")
+    if not os.path.exists(os.path.join(tum, "groundtruth.txt")):
+        shutil.rmtree(tum, ignore_errors=True)
+        write_tum_sequence(load_config(CONFIG), tum)
+    tum_cfg = load_config(CONFIG)
+    tum_cfg["data"]["input_folder"] = tum
+    loader_times(f"iphone {cam['W']}x{cam['H']} JPEG -> "
+                 f"{cam['W_out']}x{cam['H_out']}", stream)
+    split = []
+    for path in stream.color_paths:
+        t0 = time.perf_counter()
+        rgb = native.read_color(path)
+        t1 = time.perf_counter()
+        resize_u8(rgb, (stream.H_out_with_edge, stream.W_out_with_edge))
+        split.append((t1 - t0, time.perf_counter() - t1))
+    dec, rs = (np.mean(x) * 1e3 for x in zip(*split))
+    print(f"data.load iphone, plain, its two parts: decode {dec:.2f} ms "
+          f"(native.read_color) and resize {rs:.2f} ms (resize_u8, torch "
+          f"with {torch.get_num_threads()} threads) per frame")
+    loader_times("phase 8 TUM 640x480 PNG (+ depth) -> 512x384",
+                 tds.get_dataset(tum_cfg))
+    return rec["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1878,8 +2261,17 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    native_build = None
+    if not KERNELS_FROM:   # the native library builds beside nvcc
+        from concurrent.futures import ThreadPoolExecutor
+
+        from wildgs_slam_tpu_torch import native
+        native_build = ThreadPoolExecutor(1).submit(native.build_library)
     log = kernels.build_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s")
+    if native_build is not None:
+        info = native_build.result()
+        print(f"native build: {info['seconds']:.2f} s ({info['compiler']})")
     for src, info in log.items():
         print(f"  {src}: {info['seconds']:.2f} s\n    "
               + info["ptxas"].replace("\n", "\n    "))
@@ -1903,6 +2295,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     nonmetric_launches = nonmetric_phase(dev, ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_jpeg = time.perf_counter()
+    jpeg_launches = jpeg_phase(dev, ckpt)
+    print(f"phase 10: {time.perf_counter() - t_jpeg:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -1910,7 +2307,8 @@ def main():
             "tracking": track_launches[row["name"]],
             "system": system_launches[row["name"]],
             "entry": entry_launches[row["name"]],
-            "nonmetric": nonmetric_launches[row["name"]]}
+            "nonmetric": nonmetric_launches[row["name"]],
+            "jpeg": jpeg_launches[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

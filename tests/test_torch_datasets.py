@@ -188,6 +188,74 @@ def test_rgb_folder_reader(tmp_path):
     assert ts.depth_paths is None and ts.poses is None
 
 
+def write_replica(root, n=3):
+    """Replica's layout: results/frame%06d.jpg, results/depth%06d.png,
+    traj.txt (one 4x4 camera-to-world row-major per line)."""
+    os.makedirs(os.path.join(root, "results"), exist_ok=True)
+    rng = np.random.RandomState(9)
+    lines = []
+    for i in range(n):
+        cv2.imwrite(os.path.join(root, "results", f"frame{i:06d}.jpg"),
+                    texture(H, W, 40 + i).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+        cv2.imwrite(os.path.join(root, "results", f"depth{i:06d}.png"),
+                    (rng.rand(H, W) * 30000).astype(np.uint16))
+        lines.append(" ".join(f"{v:.6f}" for v in
+                              (np.eye(4) + 0.01 * rng.normal(size=(4, 4)))
+                              .ravel()))
+    with open(os.path.join(root, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_scannet(root, n=3):
+    """ScanNet's layout: color/<i>.jpg, depth/<i>.png, pose/<i>.txt,
+    numbered without padding (the readers sort numerically)."""
+    for d in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rng = np.random.RandomState(10)
+    for i in (0, 2, 10)[:n]:
+        cv2.imwrite(os.path.join(root, "color", f"{i}.jpg"),
+                    texture(H, W, 50 + i).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                     cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422])
+        cv2.imwrite(os.path.join(root, "depth", f"{i}.png"),
+                    (rng.rand(H, W) * 4000).astype(np.uint16))
+        np.savetxt(os.path.join(root, "pose", f"{i}.txt"),
+                   np.eye(4) + 0.01 * rng.normal(size=(4, 4)))
+
+
+def test_replica_reader_on_jpeg_frames(tmp_path):
+    root = str(tmp_path / "replica")
+    write_replica(root)
+    _, ts = same_stream(*cfgs("replica", root))
+    assert len(ts.poses) == 3
+
+
+def test_scannet_reader_on_jpeg_frames(tmp_path):
+    root = str(tmp_path / "scannet")
+    write_scannet(root)
+    _, ts = same_stream(*cfgs("scannet", root))
+    assert [os.path.basename(p) for p in ts.color_paths] == [
+        "0.jpg", "2.jpg", "10.jpg"]
+
+
+def test_rgb_folder_reader_on_jpeg_frames(tmp_path):
+    """Phone folders: .jpg, .JPG and .jpeg beside a .png, progressive and
+    grey ones among them."""
+    root = str(tmp_path / "phone")
+    os.makedirs(os.path.join(root, "rgb"))
+    for i, (ext, params) in enumerate((
+            (".jpg", []), (".JPG", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+            (".jpeg", [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]),
+            (".png", []))):
+        img = texture(H, W, 60 + i).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, "rgb", f"{i:04d}{ext}"),
+                    img[..., 0] if i == 2 else img, params)
+    _, ts = same_stream(*cfgs("wild_slam_iphone", root))
+    assert len(ts) == 4
+
+
 def test_undistortion(tmp_path):
     """freiburg2's distortion (configs/Dynamic/TUM_RGBD/
     freiburg2_desk_with_person.yaml) on a 480x640 frame."""

@@ -57,7 +57,8 @@ def test_sources_name_no_jax_module():
 # or matplotlib: one semantics everywhere, so neither an import of those nor
 # a fallback on ImportError
 ONE_SEMANTICS = ("slam/depth_fill.py", "slam/mapper.py", "gui/file_gui.py",
-                 "gui/html_viewer.py", "utils/png.py", "ops/lie.py")
+                 "gui/html_viewer.py", "utils/png.py", "ops/lie.py",
+                 "native/__init__.py")
 
 
 def test_one_semantics_modules_import_no_image_library():
@@ -69,3 +70,13 @@ def test_one_semantics_modules_import_no_image_library():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.ExceptHandler) and node.type is not None:
                 assert "ImportError" not in ast.unparse(node.type), rel
+
+
+def test_port_sources_import_no_cv2_or_pil():
+    """The card's machine has neither: the port decodes images with its
+    native library (native/) and resamples with torch and numpy."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PORT / "native" / "__init__.py" in files
+    for path in files:
+        bad = [m for m in _imports(path) if m.split(".")[0] in ("cv2", "PIL")]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

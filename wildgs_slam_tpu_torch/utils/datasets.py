@@ -7,11 +7,14 @@ cropped and the intrinsics rescaled to match. ``stream[i]`` returns (index,
 colour (H, W, 3) float RGB in [0, 1], depth (H, W) in metres or None,
 camera-to-world pose (4, 4) or None).
 
-The port reads PNG itself (``utils/png.py``) and resamples as cv2 does
-(``utils/resample.py``): colour bilinear (within one level of cv2's
-fixed-point result), depth nearest (exact), undistortion by cv2's map and a
-bilinear remap. JPEG files (Replica, ScanNet, phone folders) are decoded
-with cv2 where it is installed; without it they raise.
+PNG and JPEG files (any case of .png, .jpg, .jpeg) are decoded by the
+port's native library (``native/``: its own C++ decoders, equal to cv2's),
+colour frames turned by their EXIF orientation as ``cv2.imread(path)``
+does, depth read as stored; any other suffix raises. The port resamples as
+cv2 does (``utils/resample.py``): colour bilinear (within one level of
+cv2's fixed-point result), depth nearest (exact), undistortion by cv2's
+map and a bilinear remap. ``PrefetchingStream`` loads a reader's frames on
+worker threads ahead of the caller.
 """
 
 from __future__ import annotations
@@ -23,40 +26,14 @@ from typing import Optional
 
 import numpy as np
 
+from ..native import (Prefetcher, color_u8, read_color,  # noqa: F401
+                      read_depth_native, read_image)
 from .common import as_intrinsics_matrix
-from .png import read_png
-from .resample import resize_nearest, resize_u8, undistort
+from .resample import resize_u8, undistort
 
 
 def focal2fov(focal, pixels):
     return 2 * math.atan(pixels / (2 * focal))
-
-
-def read_image(path: str) -> np.ndarray:
-    """An image file as stored: uint8/uint16, RGB(A) channel order."""
-    if path.lower().endswith(".png"):
-        return read_png(path)
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"{path}: decoding this format needs cv2, which "
-                          "is not installed (the port reads PNG itself)"
-                          ) from e
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise ValueError(f"{path}: cv2 could not read it")
-    return img[..., [2, 1, 0]] if img.ndim == 3 else img
-
-
-def color_u8(img: np.ndarray) -> np.ndarray:
-    """What cv2.imread(path) (IMREAD_COLOR) makes of a decoded image: three
-    8-bit channels (grey repeated, alpha dropped, 16 bits cut to their high
-    byte); RGB order."""
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
 
 
 class BaseDataset:
@@ -110,7 +87,7 @@ class BaseDataset:
         return x
 
     def get_color(self, index):
-        color = color_u8(read_image(self.color_paths[index]))
+        color = read_color(self.color_paths[index])
         if self.distortion is not None:
             K = as_intrinsics_matrix(
                 [self.fx_orig, self.fy_orig, self.cx_orig, self.cy_orig])
@@ -122,11 +99,9 @@ class BaseDataset:
     def get_depth(self, index) -> Optional[np.ndarray]:
         if self.depth_paths is None:
             return None
-        depth = read_image(self.depth_paths[index])
-        depth = depth.astype(np.float32) / self.png_depth_scale
-        depth = resize_nearest(depth, (self.H_out_with_edge,
-                                       self.W_out_with_edge))
-        return self._crop(depth)
+        return self._crop(read_depth_native(
+            self.depth_paths[index], self.W_out_with_edge,
+            self.H_out_with_edge, self.png_depth_scale))
 
     def __getitem__(self, index):
         color = self.get_color(index)
@@ -307,6 +282,34 @@ class ScanNet(BaseDataset):
         self.poses = [np.loadtxt(p).astype(np.float32)
                       for p in pose_paths] or None
         self.n_img = len(self.color_paths)
+
+
+class PrefetchingStream:
+    """A reader whose frames `n_threads` worker threads load ahead of the
+    caller, `lookahead` frames past the last one asked for (the native
+    ``Prefetcher``). ``stream[i]`` equals ``ds[i]``: the workers call the
+    reader itself, undistortion included. Other attributes are the
+    reader's."""
+
+    def __init__(self, ds: BaseDataset, n_threads: int = 2,
+                 lookahead: int = 4):
+        self.ds = ds
+        self._pool = Prefetcher(ds.__getitem__, len(ds), n_threads,
+                                lookahead)
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getattr__(self, name):
+        if name in ("ds", "_pool"):   # not set yet: no recursion
+            raise AttributeError(name)
+        return getattr(self.ds, name)
+
+    def __getitem__(self, index):
+        return self._pool.get(index)
+
+    def close(self):
+        self._pool.close()
 
 
 dataset_dict = {

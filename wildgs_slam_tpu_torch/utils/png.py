@@ -1,5 +1,6 @@
 """PNG decoding and encoding with the standard library and numpy (no cv2,
-no PIL).
+no PIL). The dataset readers decode with the native library (``native/``);
+this decoder is the plain version its tests hold it against.
 
 ``read_png(path)`` returns the samples as stored: (H, W) for grey, (H, W, 3)
 RGB, (H, W, 4) RGBA; uint8 for 8-bit files, uint16 for 16-bit ones (PNG
