@@ -13,7 +13,10 @@ Phases, each printing its own lines:
      (T=768 tiles, K=512 slots, chunk 64, N=262,144 Gaussians), on a table
      made by the port's own projection and binning of a seeded scene: K1/K2
      (composite), K3 (table gather, exact) and K4 (its scatter-add, with
-     random cotangents in every slot);
+     random cotangents in every slot); and K2 where exp(power) overflows
+     (indefinite conics in an open chunk, a saturated one and past a
+     count): NaN where its plain version has NaN, the rest within max-rel
+     1e-5;
   4. each kernel's time on the device per call (torch.profiler over 20
      calls; the median of CUDA-event rounds of back-to-back calls beside
      it, which includes any wait for the host) beside its bound, its plain
@@ -94,8 +97,30 @@ Phases, each printing its own lines:
      sequence, plain and through PrefetchingStream (2 workers, lookahead
      4; also with a pause before each frame), every prefetched frame
      bit-equal to the plain one;
-  11. one JSON line describing every kernel;
-  12. the card again, then the last line {"ok": true, "device": {...}}.
+  11. the multi-device mode (wildgs_slam_tpu_torch/parallel/) on meshes of
+     2 and 8 shards on cuda:0 (make_mesh(devices=...); one process drives
+     them, as the JAX package's one controller does; shards on one card
+     measure correctness and the sharded path's extra launches, not
+     scaling). (a) The Gaussian/tile-sharded renderer against render_fused
+     on phase 3's scene at 384x512 (capacity_local 256 and 64, as the
+     mapper sets it): forward and the gradients of means, scales, opacity,
+     SH and pose_delta within tests/test_multichip.py's tolerances wherever
+     no shard's tile list overflows (each shard's drops printed), ms per
+     forward+backward, K1-K4 launched D times per render. (d) SLAM.run()
+     on 16 frames of phase 8's TUM sequence with the seeded DROID weights
+     (the frontend's updates through the edge-sharded step), with a 2-shard
+     mesh killed at 8 frames and resumed from its checkpoint, and without
+     a mesh: the same keyframe count, final_gs.ply written, the loop-end
+     differences printed beside tests/test_mesh_e2e.py's tolerances. (b)
+     make_sharded_ba against dba.ba, with and without the sensor term,
+     and (c) the network update_n with and without a mesh, on the last
+     window of (d)'s run without a mesh: one update within 1e-5 + 1e-4
+     rel with cuDNN off in both (cuDNN's algorithm depends on the batch, a
+     shard's smaller one rounds differently), eight with it on printed,
+     ms per iteration and peak memory. (e)
+     run.build(--mesh 2) raises make_mesh's message on one card;
+  12. one JSON line describing every kernel;
+  13. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -205,9 +230,9 @@ def t32(a, dev):
 # phase 3/4: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
 
-def mapping_table(dev, n=262144, h=384, w=512, capacity=512, seed=0):
-    """Counts and packed table of a seeded random scene through the port's
-    projection, binning and table gather."""
+def mapping_scene(dev, n=262144, h=384, w=512, seed=0):
+    """A seeded random scene of n Gaussians in front of an h x w camera:
+    [means, scales, rotations, opacities, SH], w2c, intrinsics."""
     rng = np.random.RandomState(seed)
     f = 0.9 * w
     means = np.concatenate([rng.uniform(-1.2, 1.2, (n, 1)) * w / f,
@@ -217,12 +242,18 @@ def mapping_table(dev, n=262144, h=384, w=512, capacity=512, seed=0):
     scales = np.exp(rng.uniform(np.log(0.004), np.log(0.03), (n, 3)))
     rots = rng.normal(size=(n, 4))
     rots /= np.linalg.norm(rots, axis=-1, keepdims=True)
-    proj = tr.project_gaussians(
-        t32(means, dev), t32(scales, dev), t32(rots, dev),
-        t32(0.2 + 0.75 * rng.uniform(size=n), dev),
-        t32(rng.uniform(-1, 1, (n, 1, 3)), dev),
-        t32([0, 0, 0, 0, 0, 0, 1], dev), t32([f, f, w / 2, h / 2], dev),
-        (h, w))
+    gauss = [t32(a, dev) for a in (
+        means, scales, rots, 0.2 + 0.75 * rng.uniform(size=n),
+        rng.uniform(-1, 1, (n, 1, 3)))]
+    return (gauss, t32([0, 0, 0, 0, 0, 0, 1], dev),
+            t32([f, f, w / 2, h / 2], dev))
+
+
+def mapping_table(dev, n=262144, h=384, w=512, capacity=512, seed=0):
+    """Counts and packed table of mapping_scene through the port's
+    projection, binning and table gather."""
+    gauss, w2c, intr = mapping_scene(dev, n, h, w, seed)
+    proj = tr.project_gaussians(*gauss, w2c, intr, (h, w))
     bins = tr.bin_gaussians(proj.mean2d, proj.radius, proj.depth, proj.valid,
                             (h, w), capacity=capacity)
     z = torch.zeros_like(proj.depth)
@@ -403,6 +434,66 @@ def table_kernel_rows(attrs, ids, dev):
     return rows
 
 
+def k2_overflow_check(counts, table, tw, ck, dev):
+    """K2 against its plain version where exp(power) overflows: phase 3's
+    table with one tile's front made opaque (so that a chunk below its
+    count saturates) and indefinite conics (a = c = -2, b = 0: power =
+    dx^2 + dy^2, inf past ~9.4 px) in a live slot of an open chunk, a live
+    slot of the saturated chunk and a slot past a count inside an open
+    chunk. NaN positions must be equal, every other value within max-rel
+    BWD_MAX_REL."""
+    T, K, _ = table.shape
+    tab = table.clone()
+    cnt = counts.clone()
+    order = torch.argsort(cnt, descending=True).tolist()
+    sat_t, open_t = order[0], order[1]          # the two fullest tiles
+    past_t = next(t for t in order if 0 < int(cnt[t]) % ck and t not in (
+        sat_t, open_t))
+
+    def centre(t):
+        return ((t % tw) * 16.0 + 7.5, (t // tw) * 16.0 + 7.5)
+    cx, cy = centre(sat_t)
+    tab[sat_t, :12, 0], tab[sat_t, :12, 1] = cx, cy
+    tab[sat_t, :12, 2] = tab[sat_t, :12, 4] = 1 / 144
+    tab[sat_t, :12, 3] = 0.0
+    tab[sat_t, :12, 8] = 0.995
+    slots = [(open_t, 5), (sat_t, ck + 3), (past_t, int(cnt[past_t]))]
+    for t, k in slots:
+        cx, cy = centre(t)
+        tab[t, k, 0], tab[t, k, 1] = cx, cy
+        tab[t, k, 2] = tab[t, k, 4] = -2.0
+        tab[t, k, 3] = 0.0
+    tid = torch.arange(T, dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    gc = torch.randn(T, 256, 3, device=dev, generator=g)
+    gd, ga, gt = (torch.randn(T, 256, device=dev, generator=g)
+                  for _ in range(3))
+    _, _, _, tfin, tentry = cc.composite_fwd_plain(cnt, tid, tab, bg, tw, ck)
+    saturated = bool(tentry[sat_t, 1].amax() < 1e-4) and int(cnt[sat_t]) > ck
+    if not (saturated and bool(tentry[open_t, 0].amax() >= 1e-4)):
+        raise AssertionError("K2 overflow table: chunk 1 of the opaque tile "
+                             "is not saturated, or chunk 0 of the open one "
+                             "is")
+    args = (cnt, tid, tab, bg, tentry, tfin, gc, gd, ga, gt, tw, ck)
+    k_d = cc.composite_bwd(*args)
+    p_d = cc.composite_bwd_plain(*args)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(k_d), torch.isnan(p_d)
+    n_nan = int(nan_p.sum())
+    rel = float((k_d[~nan_p] - p_d[~nan_p]).abs().max()
+                / p_d[~nan_p].abs().max())
+    print(f"K2 where exp overflows (tiles/slots {slots}: open chunk, "
+          f"saturated chunk, past the count): NaN positions "
+          f"{'equal' if torch.equal(nan_k, nan_p) else 'DIFFER'} "
+          f"({int(nan_k.sum())} kernel, {n_nan} plain, {len(slots) * 6} "
+          f"expected), the rest max-rel {rel:.3e}")
+    if not (torch.equal(nan_k, nan_p) and n_nan == len(slots) * 6
+            and rel < BWD_MAX_REL):
+        raise AssertionError("K2 disagrees with its plain version where "
+                             "exp overflows")
+
+
 def kernel_phase(dev):
     counts, table, overflow, tw, attrs, ids = mapping_table(dev)
     T, K, _ = table.shape
@@ -436,6 +527,8 @@ def kernel_phase(dev):
     print(f"K2 dattrs vs plain: max-abs {bwd_abs:.3e} max-rel {bwd_rel:.3e}")
     if not bwd_rel < BWD_MAX_REL:
         raise AssertionError(f"K2 max-rel {bwd_rel} >= {BWD_MAX_REL}")
+    if not KERNELS_FROM:
+        k2_overflow_check(counts, table, tw, ck, dev)
 
     # the work these inputs need: live slots of the chunks a tile opens, and
     # of their slot-pixel pairs those alive (alpha >= 1/255, t_after >= 1e-4)
@@ -2249,6 +2342,446 @@ def jpeg_phase(dev, ckpt):
     return rec["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device mode, meshes of shards on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 8)     # shards of the meshes, all on cuda:0
+MESH_FRAMES = 16         # (d): frames of phase 8's TUM sequence
+MESH_KILL = 8            # (d): leg A's --max_frames; B resumes there
+MESH_BUFFER = 32         # (d): keyframe buffer (the config's 350)
+MESH_WARMUP = 4          # (d): keyframes before the frontend starts (12)
+MESH_CUTS = {"init_itr_num": 60, "mapping_itr_num": 20,
+             "final_refine_iters": 100}   # (d): depth only
+MESH_UPDATES = 8         # (c): updates compared, not gated
+FWD_TOL = (2e-5, 1e-4)   # atol, rtol of tests/test_multichip.py
+GRAD_TOL = (5e-4, 1e-3)
+STEP_TOL = (1e-5, 1e-4)  # test_sharded_track_step_matches_update_core
+E2E_TOL = {"poses": 2e-3, "disps": 5e-3}   # tests/test_mesh_e2e.py
+
+
+def within(a, b, tol):
+    """(max |a - b|, |a - b| <= atol + rtol |b| everywhere)."""
+    atol, rtol = tol
+    a, b = a.detach(), b.detach()
+    d = (a - b).abs()
+    return float(d.max()), bool((d <= atol + rtol * b.abs()).all())
+
+
+def capacity_drops(mean2d, radius, depth, valid, image_size, capacity):
+    """Entries that tile lists of `capacity` drop (the window truncation
+    past kw tiles apart), the first tiles that drop some, and the longest
+    list: the binning's overflow at `capacity` less its overflow with room
+    for every entry."""
+    tight = tr.bin_gaussians(mean2d, radius, depth, valid, image_size,
+                             capacity=capacity)
+    room = tr.bin_gaussians(mean2d, radius, depth, valid, image_size,
+                            capacity=4096)
+    over = torch.nonzero(room.counts > capacity).squeeze(1).tolist()
+    return (int(tight.overflow - room.overflow), over[:8],
+            int(room.counts.max()))
+
+
+def mesh_render_check(dev, pmesh, sraster, h=384, w=512):
+    """(a) the sharded renderer against render_fused on phase 3's scene at
+    h x w, forward and gradients, at each mesh; returns the launches of
+    one forward+backward per mesh."""
+    gauss, w2c, intr = mapping_scene(dev, h=h, w=w)
+    N = gauss[0].shape[0]
+    cap, ck = 512, 64
+    wc = torch.rand(h, w, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def fwd_bwd(fn):
+        leaves = [gauss[i].clone().requires_grad_(True) for i in (0, 1, 3, 4)]
+        pd = torch.zeros(6, device=dev, requires_grad=True)
+        out = fn(leaves[0], leaves[1], gauss[2], leaves[2], leaves[3], w2c,
+                 intr, pose_delta=pd, bg=bg)
+        loss = ((out.color * wc).sum() + 0.5 * out.depth.sum()
+                + 0.25 * out.alpha.sum())
+        return out, torch.autograd.grad(loss, leaves + [pd])
+
+    def single(*a, **k):
+        return tr.render_fused(*a[:7], (h, w), capacity=cap, chunk=ck, **k)
+    ref, ref_g = fwd_bwd(single)
+    proj = tr.project_gaussians(*gauss, w2c, intr, (h, w))
+    drop1 = capacity_drops(proj.mean2d, proj.radius, proj.depth, proj.valid,
+                           (h, w), cap)
+    ms1 = time_ms(lambda: fwd_bwd(single), 5, warmup=1, rounds=3)
+    print(f"mesh (a): render_fused at capacity {cap}: forward+backward "
+          f"{ms1:.2f} ms; overflow {int(ref.overflow)} (capacity drops "
+          f"{drop1[0]}, longest list {drop1[2]})")
+    launches = {k: 0 for k in KERNELS}
+    names = ("means", "scales", "opacity", "sh", "pose_delta")
+    for D in MESH_SHARDS:
+        mesh = pmesh.make_mesh(devices=[dev] * D, axis="g")
+        cap_loc = max(64, -(-cap // D))            # as the mapper sets it
+        fn = sraster.make_sharded_render(mesh, (h, w), capacity_local=cap_loc,
+                                         chunk=ck)
+        drops = []
+        for d in range(D):
+            sl = slice(d * N // D, (d + 1) * N // D)
+            pj = tr.project_gaussians(*[x[sl] for x in gauss], w2c, intr,
+                                      (h, w))
+            drops.append(capacity_drops(pj.mean2d, pj.radius, pj.depth,
+                                        pj.valid, (h, w), cap_loc))
+        reset_launches()
+        out, grads = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        got = read_launches()
+        for k in KERNELS:
+            launches[k] += got[k]
+        ms = time_ms(lambda: fwd_bwd(fn), 5, warmup=1, rounds=3)
+        errs = {k: within(getattr(out, k), getattr(ref, k), FWD_TOL)
+                for k in ("color", "depth", "alpha")}
+        errs.update({n: within(a, b, GRAD_TOL)
+                     for n, a, b in zip(names, grads, ref_g)})
+        print(f"mesh (a) D={D}: capacity_local {cap_loc} (merged "
+              f"{D * cap_loc}); per-shard capacity drops "
+              f"{[x[0] for x in drops]}, longest per-shard list "
+              f"{max(x[2] for x in drops)}; overflow {int(out.overflow)} "
+              f"(single {int(ref.overflow)}); forward+backward {ms:.2f} ms "
+              f"(single {ms1:.2f} ms; shards share one card, so this is the "
+              f"cost of the sharded path's extra launches, not scaling); "
+              f"launches {json.dumps(got)}")
+        print(f"mesh (a) D={D} max |sharded - single|: " + json.dumps(
+            {k: v[0] for k, v in errs.items()}) + f" (forward atol/rtol "
+            f"{FWD_TOL}, gradients {GRAD_TOL})")
+        if any(v != D for v in got.values()):
+            raise AssertionError(f"sharded render D={D}: launches {got}, "
+                                 f"not {D} each")
+        if drop1[0] or any(x[0] for x in drops):
+            where = {d: x[1] for d, x in enumerate(drops) if x[0]}
+            print(f"mesh (a) D={D}: NOT GATED: a tile list overflowed "
+                  f"(shard: first tiles {json.dumps(where)}; single "
+                  f"{drop1[1]})")
+        elif not all(v[1] for v in errs.values()):
+            raise AssertionError(f"sharded render D={D} disagrees: {errs}")
+    return launches
+
+
+def graph_snapshot(state, g):
+    st = state.store
+    return ({k: getattr(st, k).clone() for k in ("poses", "disps",
+                                                 "disps_up")},
+            {k: getattr(g, k).clone() for k in ("net", "target", "weight",
+                                                "damping")}, g.age.copy())
+
+
+def graph_restore(state, g, snap):
+    store, edges, age = snap
+    for k, v in store.items():
+        getattr(state.store, k).copy_(v)
+    for k, v in edges.items():
+        setattr(g, k, v.clone())
+    g.age = age.copy()
+
+
+def mesh_tracking_check(dev, pmesh, sdba, col, st, g):
+    """(b) make_sharded_ba against dba.ba and (c) the network update_n with
+    and without a mesh, on the last window of a seeded network run (state
+    `st`, frontend graph `g`)."""
+    from wildgs_slam_tpu_torch.ops import dba
+    from wildgs_slam_tpu_torch.slam import factor_graph as fg
+
+    store = st.store
+    F = store.poses.shape[0]
+    n = st.counter
+
+    # (b) the BA of the window, with and without the sensor term
+    t0, t1, sel, ii_all, jj_all = g._window(None, None, True)
+    tgt = torch.cat([g.target, g.target_inac[sel]])
+    wgt = torch.cat([g.weight, g.weight_inac[sel]])
+    if st.uncertainty_aware:
+        wgt = wgt * store.uncertainties_inv[ii_all][..., None]
+    eta = 0.2 * g.damping + fg.EP_DAMP
+    sh, sw = kstore.slice_hw(*store.mono_disps_up.shape[-2:])
+    sensor = (store.mono_disps, store.mono_mask_up[:, sh, sw])
+    ii_np, jj_np = ii_all.cpu().numpy(), jj_all.cpu().numpy()
+    degree = max(fg.GROUP_DEGREE, int(np.bincount(ii_np).max()))
+    bcfg = dba.BAConfig(lm=1e-4, ep=0.1)
+    print(f"mesh (b): window [{t0}, {t1}) of {n} keyframes, {len(ii_np)} "
+          f"edges ({len(sel)} inactive), largest source-frame degree "
+          f"{int(np.bincount(ii_np).max())}")
+    for use_sensor in (False, True):
+        ref = dba.ba(store.poses, store.disps, store.intrinsics, tgt, wgt,
+                     eta, ii_all, jj_all, t0, t1, iters=2, cfg=bcfg,
+                     sensor_disps=sensor[0] if use_sensor else None,
+                     sensor_valid=sensor[1] if use_sensor else None)
+        for D in MESH_SHARDS:
+            mesh = pmesh.make_mesh(devices=[dev] * D, axis="edge")
+            meta = sdba.shard_edges_by_frame(ii_np, jj_np, D, F, degree)
+            e = sdba.gather_edges([tgt, wgt, ii_all, jj_all], meta["perm"])
+            e.append(torch.as_tensor(meta["valid"].reshape(-1), device=dev))
+            shards = [col.shard_rows(x, mesh.devices) for x in e]
+            fn = sdba.make_sharded_ba(mesh, t1 - t0, cfg=bcfg,
+                                      use_sensor=use_sensor, iters=2)
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            p, d = fn(store.poses, store.disps, store.intrinsics, shards[0],
+                      shards[1], eta, *shards[2:], meta["groups"],
+                      meta["owner"], t0, t1, *sensor)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_0) * 1e3
+            ep, okp = within(p, ref[0], STEP_TOL)
+            ed, okd = within(d, ref[1], STEP_TOL)
+            print(f"mesh (b) D={D} sensor={use_sensor}: max |sharded - "
+                  f"dba.ba| poses {ep:.3e} disps {ed:.3e} (atol/rtol "
+                  f"{STEP_TOL}); {ms:.1f} ms for 2 iterations")
+            if not (okp and okd):
+                raise AssertionError(f"sharded BA D={D} sensor={use_sensor} "
+                                     f"disagrees with dba.ba")
+
+    # (c) the network update_n with and without a mesh, same state. The
+    # gate runs both with cuDNN off: cuDNN picks its convolution algorithm
+    # by batch size, so a shard's smaller batch rounds differently (the GRU
+    # state moved by up to 1.3e-5 after one update with cuDNN, 0 without,
+    # on an NVIDIA H100 80GB HBM3), which the JAX test's CPU tolerance does
+    # not allow for. With cuDNN on, the differences are printed and timed.
+    snap = graph_snapshot(st, g)
+    keys = ("net", "target", "weight", "poses", "disps")
+
+    def updates(mesh, k, cudnn=True):
+        graph_restore(st, g, snap)
+        g.mesh = mesh
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_0 = time.perf_counter()
+            g.update_n(k, use_inactive=True)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.enabled = True
+            g.mesh = None
+        return dict(ms=(time.perf_counter() - t_0) * 1e3 / k,
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    poses=store.poses.clone(), disps=store.disps.clone(),
+                    net=g.net.clone(), target=g.target.clone(),
+                    weight=g.weight.clone())
+    exact = updates(None, 1, cudnn=False)
+    one = updates(None, 1)
+    many = updates(None, MESH_UPDATES)
+    print(f"mesh (c) single device: {one['ms']:.1f} ms for 1 update, "
+          f"{many['ms']:.1f} ms per iteration over {MESH_UPDATES}; peak "
+          f"{many['peak']:.2f} GiB")
+    for D in MESH_SHARDS:
+        mesh = pmesh.make_mesh(devices=[dev] * D, axis="g")
+        a = updates(mesh, 1, cudnn=False)
+        errs = {k: within(a[k], exact[k], STEP_TOL) for k in keys}
+        a = updates(mesh, 1)
+        noisy = {k: float((a[k] - one[k]).abs().max()) for k in keys}
+        b = updates(mesh, MESH_UPDATES)
+        drift = {k: float((b[k] - many[k]).abs().max()) for k in keys}
+        print(f"mesh (c) D={D}: after 1 update, cuDNN off, max |sharded - "
+              f"single| " + json.dumps({k: v[0] for k, v in errs.items()})
+              + f" (atol/rtol {STEP_TOL}); cuDNN on " + json.dumps(noisy)
+              + f"; after {MESH_UPDATES}, cuDNN on (not gated: float32 "
+              f"summation order compounds through the GRU) "
+              + json.dumps(drift) + f"; {a['ms']:.1f} ms for 1 update, "
+              f"{b['ms']:.1f} ms per iteration, peak {b['peak']:.2f} GiB "
+              f"(shards share one card)")
+        if not all(v[1] for v in errs.values()):
+            raise AssertionError(f"sharded update_n D={D} disagrees: {errs}")
+    graph_restore(st, g, snap)
+
+
+def mesh_slam_run(cfg, dev, mesh, label, resume=None, terminate=True):
+    """SLAM.run() on phase 8's TUM sequence with the seeded DROID weights
+    (no oracle: the frontend's updates are the network's), the scene's
+    exact depth as the prior and seeded random DINO features; returns
+    (slam, the state at the loop's end, seconds)."""
+    from wildgs_slam_tpu_torch.utils.datasets import get_dataset
+
+    stream = get_dataset(cfg)
+    H, W = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
+    _, _, truth = room_scene(cfg, MESH_FRAMES, seed=3, step=SYSTEM_STEP,
+                             camera=((H, W), tuple(stream.intrinsic)),
+                             dino=False)
+
+    def feat_fn(image):
+        seed = int(np.asarray(image, np.float64).sum() * 1e3) % 2 ** 31
+        return np.random.RandomState(seed).normal(
+            size=(H // 14, W // 14, 384)).astype(np.float32)
+    slam = system.SLAM(cfg, stream, depth_fn=lambda im: None,
+                       feat_fn=feat_fn, device=dev, mesh=mesh)
+    mf = slam.motion_filter
+    track, frame = mf.track, {}
+
+    def tracked(tstamp, image):
+        frame["i"] = int(tstamp)
+        return track(tstamp, image)
+    mf.track = tracked
+    mf.depth_fn = lambda image: truth[frame["i"]][1]
+    end = {}
+    term = slam.terminate
+
+    def at_loop_end():
+        """The loop's result, before terminate's final BA moves it."""
+        torch.cuda.synchronize()
+        n = slam.state.counter
+        end.update(t=time.perf_counter(), n=n,
+                   poses=slam.state.store.poses[:n].clone(),
+                   disps=slam.state.store.disps[:n].clone(),
+                   alive=gm.num_alive(slam.mapper.gaussians))
+        if terminate:
+            term()
+    slam.terminate = at_loop_end
+    torch.cuda.synchronize()
+    TIMER.reset()
+    t0 = time.perf_counter()
+    slam.run(resume_path=resume)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = TIMER.stats["data.load"].count
+    upd = TIMER.stats.get("track.frontend")
+    term_s = (f"terminate {wall - end['t'] + t0:.2f} s" if terminate
+              else "no terminate")
+    print(f"{label}: {n} frames -> {slam.state.counter} keyframes; loop "
+          f"{(end['t'] - t0) / n * 1e3:.1f} ms per frame, {term_s}"
+          f"; track.frontend {upd.total / max(upd.count, 1) * 1e3:.1f} ms "
+          f"per frame; sharded update_n built "
+          f"{len(slam.frontend.graph._sharded_steps)} step function(s)")
+    return slam, end, wall
+
+
+def mesh_system_check(dev, pmesh):
+    """(d) SLAM.run() with a 2-shard mesh on one card, killed and resumed,
+    against the run without a mesh. Returns the run without a mesh (its
+    loop ended, no terminate) and the mesh legs' launches."""
+    seq = os.path.join(ENTRY_DIR, "tum_sequence")     # phase 8 wrote it
+    out = os.path.join(ENTRY_DIR, "mesh_out")
+    shutil.rmtree(out, ignore_errors=True)
+
+    def cfg_for(tag, **extra):
+        cfg = load_config(CONFIG)
+        cfg.update(scene=f"mesh_{tag}", fast_mode=True, verbose=False,
+                   max_frames=MESH_FRAMES, **extra)
+        cfg["data"].update(input_folder=seq, output=out)
+        t = cfg["tracking"]
+        t["buffer"] = MESH_BUFFER
+        t["warmup"] = MESH_WARMUP
+        t["force_keyframe_every_n_frames"] = 1
+        t["motion_filter"]["thresh"] = 1e9
+        cfg["mapping"]["final_refine_iters"] = MESH_CUTS["final_refine_iters"]
+        for k in ("init_itr_num", "mapping_itr_num"):
+            cfg["mapping"]["Training"][k] = MESH_CUTS[k]
+        return cfg
+    reduced = {"frames": (f"{MESH_FRAMES} of phase 8's TUM sequence, every "
+                          f"one a keyframe; the mesh leg killed at "
+                          f"{MESH_KILL} with a checkpoint and resumed"),
+               "tracking.buffer": f"350 -> {MESH_BUFFER}",
+               "tracking.warmup": (f"12 -> {MESH_WARMUP} (test_mesh_e2e.py's; "
+                                   f"leg A must pass it to checkpoint)"),
+               "iterations": json.dumps(MESH_CUTS),
+               "priors": "the scene's exact depth; seeded random features",
+               "DROID weights": "seeded (no droid.pth); no oracle"}
+    print("mesh (d) reduced:", json.dumps(reduced))
+    one, end1, wall1 = mesh_slam_run(cfg_for("single"), dev, None,
+                                     "mesh (d) no mesh", terminate=False)
+    mesh = pmesh.make_mesh(devices=[dev] * 2, axis="g")
+    reset_launches()
+    a, _, wall_a = mesh_slam_run(
+        cfg_for("mesh", checkpoint_every=MESH_KILL) | {
+            "max_frames": MESH_KILL}, dev, mesh, "mesh (d) 2 shards, leg A",
+        terminate=False)
+    renders = a.mapper.fused_renders
+    del a
+    ckpt = os.path.join(out, "mesh_mesh", "checkpoint.npz")
+    if not os.path.exists(ckpt):
+        raise AssertionError("mesh leg A wrote no checkpoint")
+    b, end_b, wall_b = mesh_slam_run(cfg_for("mesh"), dev, mesh,
+                                     "mesh (d) 2 shards, leg B", resume=ckpt)
+    renders += b.mapper.fused_renders
+    launches = read_launches()
+    launch_gate("mesh (d) legs A + B", launches, renders)
+    n = end1["n"]
+    dp = float((end_b["poses"] - end1["poses"]).abs().max())
+    dd = float((end_b["disps"] - end1["disps"]).abs().max())
+    print(f"mesh (d) at the loops' end: keyframes {end_b['n']} (mesh) vs "
+          f"{n}; max |mesh - single| keyframe poses {dp:.3e}, disparities "
+          f"{dd:.3e}; alive {end_b['alive']} vs {end1['alive']} "
+          f"(test_mesh_e2e.py's tolerances {json.dumps(E2E_TOL)}, equal "
+          f"alive; printed, not gated); mesh capacity {b.mapper.capacity}; "
+          f"{wall1:.1f} s without a mesh (no terminate), "
+          f"{wall_a + wall_b:.1f} s with (A + B, B's terminate included)")
+    ply = os.path.join(out, "mesh_mesh", "final_gs.ply")
+    if not (end_b["n"] == n and os.path.exists(ply)
+            and len(b.frontend.graph._sharded_steps) > 0):
+        raise AssertionError("mesh (d): the mesh run did not reach the same "
+                             "keyframe count through the sharded step, or "
+                             "wrote no final_gs.ply")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one, launches
+
+
+def mesh_entry_check(dev):
+    """(e) run.build(--mesh 2) on this machine: make_mesh's message when it
+    has one card."""
+    from wildgs_slam_tpu_torch import run as entry
+
+    seq = os.path.join(ENTRY_DIR, "tum_sequence")
+    out = os.path.join(ENTRY_DIR, "mesh_out")
+    spec = {"inherit_from": CONFIG, "scene": "mesh_entry", "verbose": False,
+            "data": {"input_folder": seq, "output": out}}
+    cfg_path = os.path.join(ENTRY_DIR, "mesh_entry.yaml")
+    with open(cfg_path, "w") as fh:
+        json.dump(spec, fh)
+    empty = os.path.join(ENTRY_DIR, "no_checkpoints")
+    os.makedirs(empty, exist_ok=True)
+    argv = [cfg_path, "--device", "cuda", "--mesh", "2", "--pretrained",
+            empty]
+    cards = torch.cuda.device_count()
+    msg = f"parallel.n_devices=2 but only {cards} devices visible"
+    if cards < 2:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                entry.build(argv)
+        except ValueError as e:
+            if str(e) != msg:
+                raise
+            print(f"mesh (e): run.build(--mesh 2) with {cards} card raised "
+                  f"ValueError('{e}')")
+        else:
+            raise AssertionError("run.build(--mesh 2) did not raise on one "
+                                 "card")
+    else:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, slam, _ = entry.build(argv)
+        print(f"mesh (e): {cards} cards: run.build(--mesh 2) built a mesh of "
+              f"{slam.mesh.size}")
+
+
+def mesh_phase(dev):
+    """Phase 11: the multi-device mode at the widths of tum_dynamic.yaml,
+    meshes of 2 and 8 shards on one card."""
+    from wildgs_slam_tpu_torch.parallel import collectives as col
+    from wildgs_slam_tpu_torch.parallel import mesh as pmesh
+    from wildgs_slam_tpu_torch.parallel import sharded_dba as sdba
+    from wildgs_slam_tpu_torch.parallel import sharded_raster as sraster
+
+    t0 = time.perf_counter()
+    render_launches = mesh_render_check(dev, pmesh, sraster)
+    t1 = time.perf_counter()
+    print(f"mesh (a): {t1 - t0:.1f} s")
+    one, slam_launches = mesh_system_check(dev, pmesh)
+    t2 = time.perf_counter()
+    print(f"mesh (d): {t2 - t1:.1f} s")
+    mesh_tracking_check(dev, pmesh, sdba, col, one.state,
+                        one.frontend.graph)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    print(f"mesh (b, c): {t3 - t2:.1f} s")
+    mesh_entry_check(dev)
+    print(f"mesh (e): {time.perf_counter() - t3:.1f} s")
+    return {k: render_launches[k] + slam_launches[k] for k in KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2300,6 +2833,11 @@ def main():
     t_jpeg = time.perf_counter()
     jpeg_launches = jpeg_phase(dev, ckpt)
     print(f"phase 10: {time.perf_counter() - t_jpeg:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    mesh_launches = mesh_phase(dev)
+    print(f"phase 11: {time.perf_counter() - t_mesh:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -2308,7 +2846,8 @@ def main():
             "system": system_launches[row["name"]],
             "entry": entry_launches[row["name"]],
             "nonmetric": nonmetric_launches[row["name"]],
-            "jpeg": jpeg_launches[row["name"]]}
+            "jpeg": jpeg_launches[row["name"]],
+            "mesh": mesh_launches[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

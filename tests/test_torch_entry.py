@@ -680,7 +680,9 @@ def test_entry_point_refusals(tmp_path, tum_scene, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         trun.build([path])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # --mesh N asks for N cards: make_mesh's message when fewer are visible
+    with pytest.raises(ValueError, match="parallel.n_devices=2 but only 0 "
+                                         "devices visible"):
         trun.build([path, "--device", "cpu", "--mesh", "2",
                     "--pretrained", ckpts])
     # no checkpoints: the reference's fallback, on one line, and the run

@@ -47,6 +47,8 @@ def _imports(path: pathlib.Path):
 def test_sources_name_no_jax_module():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for rel in ONE_SEMANTICS:    # the multi-device modules among them
+        assert PORT / rel in files, rel
     for path in files:
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
@@ -58,7 +60,10 @@ def test_sources_name_no_jax_module():
 # a fallback on ImportError
 ONE_SEMANTICS = ("slam/depth_fill.py", "slam/mapper.py", "gui/file_gui.py",
                  "gui/html_viewer.py", "utils/png.py", "ops/lie.py",
-                 "native/__init__.py")
+                 "native/__init__.py", "utils/plot_utils.py",
+                 "parallel/collectives.py", "parallel/mesh.py",
+                 "parallel/sharded_raster.py", "parallel/sharded_dba.py",
+                 "parallel/sharded_track.py")
 
 
 def test_one_semantics_modules_import_no_image_library():

@@ -18,7 +18,11 @@ K2 skips work it can prove adds an exact zero: chunks past a tile's count,
 chunks every pixel enters saturated (transmittance < 1e-4), a warp's
 reduction when none of its pixels is alive, and a warp's walk once all its
 pixels are saturated. `test_bwd_saturated_chunks` holds those skips
-against the plain version on a table built to reach them.
+against the plain version on a table built to reach them. Where exp(power)
+overflows on a slot of a chunk below the count, K2 writes NaN into that
+slot's geometry lanes, as the plain version and the JAX kernel do; it walks
+only slots whose conic is not positive semidefinite for that
+(`test_bwd_overflow_nan`, on `overflow_table`).
 
 K1 stops a dead pair after its geometry, finds some dead without their exp
 (by a per-slot threshold on the exponent), stages only the rows up to a
@@ -180,6 +184,29 @@ def skip_edge_table(K=128, seed=7):
     return counts, table, tw
 
 
+OVERFLOW_SLOTS = ((9, 5), (10, 40), (0, 100), (3, 70), (11, 127))
+
+
+def overflow_table(K=128, seed=5):
+    """saturating_table with indefinite conics (a = c = -2, b = 0: power =
+    dx^2 + dy^2, above 88 up to 11 px off the centre, so exp overflows to
+    inf at some pixels of the tile) in the slots OVERFLOW_SLOTS: live slots
+    of open chunks (tiles 9, 10), a live slot of a saturated chunk (tile 0,
+    slot 100), and slots at or past their tile's count inside an open chunk
+    (tiles 3 and 11: counts 70 and 127). Tile 1's slot 20 gets an indefinite
+    conic that stays finite (a = c = -0.01: power < 1.2)."""
+    counts, table, tw = saturating_table(K, seed)
+    counts[3], counts[11] = 70, 127
+    for t, k in OVERFLOW_SLOTS:
+        table[t, k, 0] = (t % tw) * 16.0 + 7.5
+        table[t, k, 1] = (t // tw) * 16.0 + 7.5
+        table[t, k, 2] = table[t, k, 4] = -2.0
+        table[t, k, 3] = 0.0
+    table[1, 20, 2] = table[1, 20, 4] = -0.01
+    table[1, 20, 3] = 0.0
+    return counts, table, tw
+
+
 def _ids_attrs(n, h, w, capacity, dev):
     """A binned id table of a seeded scene and random (n, 16) rows."""
     rng = np.random.RandomState(3)
@@ -266,6 +293,50 @@ def test_bwd_saturated_chunks(ck):
     zero = (~below | sat).repeat_interleave(ck, dim=1)        # (T, K)
     zero |= torch.arange(K, device=dev)[None] >= counts[:, None]
     assert bool((k_d[zero] == 0).all()) and bool((p_d[zero] == 0).all())
+
+
+@pytest.mark.parametrize("ck", [32, 64])
+def test_bwd_overflow_nan(ck):
+    """K2 where exp(power) overflows (``overflow_table``): NaN in the same
+    positions as its plain version (the geometry lanes of the overflowing
+    slots of chunks below the count, saturated ones included), every other
+    value within max-rel 1e-5."""
+    _need_card()
+    dev = torch.device("cuda")
+    counts_np, table_np, tw = overflow_table()
+    counts = torch.as_tensor(counts_np, device=dev)
+    table = torch.as_tensor(table_np, device=dev)
+    T = table.shape[0]
+    tid = torch.arange(T, dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    gc = torch.randn(T, 256, 3, device=dev, generator=g)
+    gd, ga, gt = (torch.randn(T, 256, device=dev, generator=g)
+                  for _ in range(3))
+    p_out = cc.composite_fwd_plain(counts, tid, table, bg, tw, ck)
+    k_out = cc.composite_fwd(counts, tid, table, bg, tw, ck)
+    for a, b in zip(k_out, p_out):
+        assert float((a - b).abs().max()) <= 1e-4
+    args = (counts, tid, table, bg, p_out[4], p_out[3], gc, gd, ga, gt, tw,
+            ck)
+    k_d = cc.composite_bwd(*args)
+    p_d = cc.composite_bwd_plain(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(p_d)
+    assert torch.equal(torch.isnan(k_d), nan)
+    lanes = torch.tensor([0, 1, 2, 3, 4, 8], device=dev)
+    for t, k in OVERFLOW_SLOTS:
+        assert bool(nan[t, k, lanes].all()), (t, k)
+    assert int(nan.sum()) == len(OVERFLOW_SLOTS) * 6
+    assert tentry_saturated(p_out[4], counts, ck)[0, 100 // ck]
+    assert _max_rel(k_d[~nan], p_d[~nan]) < 1e-5
+
+
+def tentry_saturated(tentry, counts, ck):
+    """(T, K // ck): chunks below the count that every pixel enters with
+    transmittance < 1e-4."""
+    starts = torch.arange(tentry.shape[1], device=tentry.device) * ck
+    return (starts[None] < counts[:, None]) & (tentry.amax(-1) < 1e-4)
 
 
 @pytest.mark.parametrize("ck", [32, 64])

@@ -32,7 +32,8 @@ from wildgs_slam_tpu_torch.ops import sh as tsh
 from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import binning as tbin
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as tcc
-from test_torch_kernels_gpu import saturating_table, skip_edge_table
+from test_torch_kernels_gpu import (OVERFLOW_SLOTS, overflow_table,
+                                    saturating_table, skip_edge_table)
 
 torch.set_num_threads(1)
 H, W = 48, 64
@@ -257,6 +258,42 @@ def test_composite_bwd_saturated_chunks_vs_pallas(ck):
     rows = np.repeat(sat, ck, axis=1)                       # (T, K)
     assert np.all(dattrs[rows] == 0) and np.all(jgrad[rows] == 0)
     assert np.abs(dattrs[~rows]).max() > 0
+
+
+@pytest.mark.parametrize("ck", [8, 32])
+def test_composite_bwd_overflow_nan_vs_pallas(ck):
+    """Where exp(power) overflows (indefinite conics of ``overflow_table``,
+    in open and saturated chunks and past a tile's count inside an open
+    chunk), dalpha = 0 and G = inf make the slot's geometry gradients NaN
+    in the Pallas VJP; K2's plain version puts NaN in the same positions
+    and agrees elsewhere."""
+    counts, table, tw = overflow_table()
+    n_t = table.shape[0]
+    bg = np.array([0.1, 0.5, 0.9], np.float32)
+    rng = np.random.RandomState(3)
+    gc = rng.normal(size=(n_t, 256, 3)).astype(np.float32)
+    gd, ga, gt = (rng.normal(size=(n_t, 256)).astype(np.float32)
+                  for _ in range(3))
+    jout, vjp = jax.vjp(
+        lambda a, b: jpc.composite_tiles_pallas(tw, ck, True,
+                                                jnp.asarray(counts), a, b),
+        jnp.asarray(table), jnp.asarray(bg))
+    jgrad = np.asarray(vjp(jpc.PallasTiles(
+        jnp.asarray(gc), jnp.asarray(gd), jnp.asarray(ga),
+        jnp.asarray(gt)))[0])
+    tid = torch.arange(n_t, dtype=torch.int32)
+    color, _, _, tfin, tentry = tcc.composite_fwd_plain(
+        T(counts, torch.int32), tid, T(table), T(bg), tw, ck)
+    np.testing.assert_allclose(color, jout.color, atol=1e-5)
+    dattrs = tcc.composite_bwd_plain(T(counts, torch.int32), tid, T(table),
+                                     T(bg), tentry, tfin, T(gc), T(gd), T(ga),
+                                     T(gt), tw, ck).numpy()
+    nan = np.isnan(jgrad)
+    np.testing.assert_array_equal(np.isnan(dattrs), nan)
+    assert nan.sum() == 6 * len(OVERFLOW_SLOTS)
+    for t, k in OVERFLOW_SLOTS:
+        assert nan[t, k, [0, 1, 2, 3, 4, 8]].all()
+    assert max_rel(dattrs[~nan], jgrad[~nan]) < 1e-5
 
 
 @pytest.mark.parametrize("ck", [8, 32])

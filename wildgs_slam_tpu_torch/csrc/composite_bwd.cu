@@ -13,6 +13,15 @@
 // slots past `count` and chunks the tile never reaches are written as 0.
 // The bg gradient is taken outside the kernel, as in JAX.
 //
+// A slot of a chunk below `count` whose exp(power) overflows at some pixel
+// of the tile gets NaN in its geometry lanes (mx, my, conic a/b/c,
+// opacity), as the JAX kernel and the plain version do: there dalpha = 0
+// and G = inf, so dpow = dalpha op G and dalpha G are NaN. Only a conic
+// that is not positive semidefinite (a < 0, c < 0 or ac - b^2 < 0) can
+// give power > 0, so each such chunk tests every slot's conic once (O(1))
+// and walks the pixels only for the slots that fail the test; a chunk that
+// is otherwise skipped stays skipped unless one of its slots fails it.
+//
 // Bound on the H100: the operations. Every live (slot, pixel) pair of an
 // open chunk needs the geometry that finds it dead or alive (~15 fp32
 // operations, the exp counted as one); each alive pair (alpha >= 1/255 and
@@ -132,6 +141,17 @@ __device__ __forceinline__ void zero_chunk(float* out, int ck) {
   for (int i = threadIdx.x; i < ck * ATTR_F; i += P) out[i] = 0.f;
 }
 
+// ovf[k] != 0 marks slot k of the chunk for the walk (its conic is not
+// positive semidefinite); the walk sets it to 2 where exp(power) is inf at
+// this thread's pixel. Every thread only reads 1 or 2 and writes 2.
+__device__ __forceinline__ void mark_overflow(const float4* blk4, int ck,
+                                              float px, float py, int* ovf) {
+  for (int k = 0; k < ck; ++k)
+    if (ovf[k] && isinf(geometry(load_slot(blk4, k), px, py).G)) ovf[k] = 2;
+}
+
+__device__ __forceinline__ bool nan_lane(int j) { return j < 5 || j == 8; }
+
 // One step of a warp's reduce-scatter of v[0..N): lanes with bit O set keep
 // the upper (N+1)/2 values, the others the lower, and each adds its
 // partner's copy of the half it keeps (a missing upper value is 0).
@@ -226,7 +246,19 @@ __global__ void __launch_bounds__(P) chunk_grads_kernel(
   float S = 0.f;
   for (int j = n_open - 1; j > c; --j)
     S += totals[((size_t)t * n_chunks + j) * P + p];
-  if (!__syncthreads_or(T0 >= T_EPS || S != 0.f)) {
+  // every slot of the chunk (past count too, as the JAX kernel) whose conic
+  // is not positive semidefinite
+  __shared__ int ovf[MAX_CK];
+  bool indef = false;
+  if (p < ck) {
+    const float* row = attrs + ((size_t)t * K + (size_t)c * ck + p) * ATTR_F;
+    const float a = row[2], b = row[3], cc = row[4];
+    indef = !(a >= 0.f && cc >= 0.f && a * cc - b * b >= 0.f);
+    ovf[p] = indef ? 1 : 0;
+  }
+  const bool any_indef = __syncthreads_or(indef);
+  const bool open = __syncthreads_or(T0 >= T_EPS || S != 0.f);
+  if (!open && !any_indef) {
     zero_chunk(out, ck);
     return;
   }
@@ -236,6 +268,15 @@ __global__ void __launch_bounds__(P) chunk_grads_kernel(
   __syncthreads();
 
   const Pixel q = pixel(tile_ids, gc, gd, ga, t, p, tw);
+  if (any_indef) {
+    mark_overflow(blk4, ck, q.px, q.py, ovf);
+    __syncthreads();
+  }
+  if (!open) {
+    for (int i = p; i < ck * ATTR_F; i += P)
+      out[i] = ovf[i / ATTR_F] == 2 && nan_lane(i % ATTR_F) ? NAN : 0.f;
+    return;
+  }
   const size_t o = (size_t)t * P + p;
   const float B =
       tfin[o] * (bg[0] * q.gcr + bg[1] * q.gcg + bg[2] * q.gcb + gt[o]);
@@ -296,6 +337,7 @@ __global__ void __launch_bounds__(P) chunk_grads_kernel(
       if (j == 2 || j == 4) r *= -0.5f;
       else if (j == 3) r = -r;
     }
+    if (ovf[k] == 2 && nan_lane(j)) r = NAN;
     out[i] = r;
   }
 }

@@ -29,7 +29,7 @@ from .table_gather import TableGather
 
 __all__ = ["render", "render_fused", "render_reference", "RenderOutput",
            "ProjectedGaussians", "project_gaussians", "bin_gaussians",
-           "gather_table", "TILE"]
+           "gather_table", "pack_attrs", "num_tiles", "TILE"]
 
 
 def gather_table(attrs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -38,6 +38,17 @@ def gather_table(attrs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     slots lie past the tile's count and get zero gradient)."""
     return TableGather.apply(attrs.contiguous(),
                              ids.to(torch.int32).contiguous())
+
+
+def pack_attrs(mean2d: torch.Tensor, proj: ProjectedGaussians):
+    """The (N, 16) rows K3 gathers: mean, conic, colour, opacity, depth and
+    6 zero lanes."""
+    zc = torch.zeros_like(proj.depth)
+    return torch.stack(
+        [mean2d[:, 0], mean2d[:, 1], proj.conic[:, 0], proj.conic[:, 1],
+         proj.conic[:, 2], proj.color[:, 0], proj.color[:, 1],
+         proj.color[:, 2], proj.opacity, proj.depth]
+        + [zc] * (composite_cuda.ATTR_F - 10), dim=1)
 
 
 def _project_and_bin(means3d, scales, rotations, opacities, sh_coeffs, w2c,
@@ -93,12 +104,7 @@ def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
         means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
         image_size, sh_degree, pose_delta, scale_modifier, mean2d_offset,
         alive, capacity, bin_kw)
-    zc = torch.zeros_like(proj.depth)
-    attrs = torch.stack(
-        [mean2d[:, 0], mean2d[:, 1], proj.conic[:, 0], proj.conic[:, 1],
-         proj.conic[:, 2], proj.color[:, 0], proj.color[:, 1],
-         proj.color[:, 2], proj.opacity, proj.depth]
-        + [zc] * (composite_cuda.ATTR_F - 10), dim=1)
+    attrs = pack_attrs(mean2d, proj)
     tiles = composite_cuda.composite_tiles(
         bins.counts, gather_table(attrs, bins.ids), bg,
         num_tiles(image_size)[1], chunk)

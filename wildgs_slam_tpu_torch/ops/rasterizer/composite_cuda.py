@@ -263,12 +263,15 @@ class CompositeTiles(torch.autograd.Function):
         return dattrs, dbg, None, None, None, None
 
 
-def composite_tiles(counts, attrs, bg, tw, ck):
-    """Composite packed per-tile tables, row t being tile t (the
-    counterpart of ``composite_tiles_pallas``). Returns color (T, P, 3),
-    depth, alpha and tfin (T, P); differentiable in attrs and bg."""
-    tile_ids = torch.arange(attrs.shape[0], dtype=torch.int32,
-                            device=attrs.device)
+def composite_tiles(counts, attrs, bg, tw, ck, tile_ids=None):
+    """Composite packed per-tile tables (the counterpart of
+    ``composite_tiles_pallas``). Row t is the global tile ``tile_ids[t]``
+    (int32 (T,); default: tile t), which places its pixels. Returns color
+    (T, P, 3), depth, alpha and tfin (T, P); differentiable in attrs and
+    bg."""
+    if tile_ids is None:
+        tile_ids = torch.arange(attrs.shape[0], dtype=torch.int32,
+                                device=attrs.device)
     return CompositeTiles.apply(attrs.contiguous(), bg.contiguous(),
                                 counts.contiguous(), tile_ids.contiguous(),
                                 tw, ck)

@@ -47,7 +47,9 @@ def parse_args(argv=None):
                    help="anomaly detection: autograd's anomaly mode and "
                         "finite checks at the phase boundaries")
     p.add_argument("--mesh", type=int, default=None,
-                   help="run over an N-device mesh (not ported yet)")
+                   help="run the system over a mesh of the first N cards "
+                        "(the frontend's updates edge-sharded); equals cfg "
+                        "parallel.n_devices; raises when fewer are visible")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--pretrained", type=str, default="pretrained",
                    help="directory of the prior networks' checkpoints")

@@ -10,6 +10,12 @@ preallocated (capacity, h*w, sum of the 4 level sizes) bfloat16 tensor
 (the JAX package also stores them in bfloat16; the lookup reads them back
 in float32).
 
+With a ``mesh`` (``parallel/mesh.py``) the network ``update_n`` runs the
+edge-sharded step of ``parallel/sharded_track.py`` instead, as the JAX
+graph's ``_update_n_sharded``: always ``n`` iterations, no early exit and no
+``motion_only``, a NaN mean delta; the oracle branch comes first and
+``update_lowmem`` stays on one device.
+
 ``update_n`` runs the JAX ``_update_core`` semantics as a Python loop: per
 iteration reproject, clamp the motion features to ±64, look up the
 correlation, run the update operator, write the damping of the edges'
@@ -43,6 +49,9 @@ from . import keyframe_store as kstore
 
 EP_DAMP = 1e-7
 ORACLE_UP_FRAMES = 96   # slots whose disps_up the oracle refreshes
+PMAX = 96               # pose slots of the sharded step's BA (JAX pmax)
+GROUP_DEGREE = 16       # least edges per source frame in the sharded BA's
+                        # group table
 CORR_CHUNK = 8          # edges per correlation-volume build
 LOWMEM_CHUNK = 8        # source frames per update-operator call in
                         # update_lowmem
@@ -56,13 +65,15 @@ def _t(x, device):
 
 class FactorGraph:
     def __init__(self, state, model: droid_net.DroidNet, max_factors=-1,
-                 corr_impl="volume"):
+                 corr_impl="volume", mesh=None):
         if corr_impl not in ("volume", "alt"):
             raise ValueError(f"corr_impl {corr_impl!r}: 'volume' or 'alt'")
         self.state = state
         self.model = model
         self.max_factors = max_factors
         self.corr_impl = corr_impl
+        self.mesh = mesh           # the sharded update_n's mesh, or None
+        self._sharded_steps = {}
         # oracle hook: callable(store, counter) -> (poses_gt (B, 7),
         # disps_gt (B, h, w)); set, it replaces the update operator
         self.gt_injection = None
@@ -254,6 +265,8 @@ class FactorGraph:
         if self.gt_injection is not None:
             return self._update_n_oracle(n, t0, t1, itrs, use_inactive,
                                          motion_only, eps)
+        if self.mesh is not None:
+            return self._update_n_sharded(n, t0, t1, itrs, use_inactive)
         st = self.state
         store = st.store
         t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
@@ -295,6 +308,77 @@ class FactorGraph:
                                                          upmask)
         self.age += n      # by the steps requested, as the JAX graph
         return n_done, dmean
+
+    @torch.no_grad()
+    def _update_n_sharded(self, n, t0, t1, itrs, use_inactive):
+        """update_n over the mesh: `n` edge-sharded track steps (JAX
+        ``_update_n_sharded``). The edge state (active rows, then the
+        selected inactive ones with zero GRU state) is gathered into
+        shard order once per call, and the active rows are written back
+        after the last step."""
+        from ..parallel import collectives as col
+        from ..parallel import sharded_dba, sharded_track
+
+        st = self.state
+        store = st.store
+        F = store.poses.shape[0]
+        devs = self.mesh.devices
+        E = self.E
+        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        ii_np, jj_np = ii_all.cpu().numpy(), jj_all.cpu().numpy()
+        # a group table that holds every edge of a source frame: the port's
+        # dba.ba drops none (the JAX graph's table keeps GROUP_DEGREE)
+        degree = max(GROUP_DEGREE, int(np.bincount(ii_np).max()))
+        meta = sharded_dba.shard_edges_by_frame(ii_np, jj_np, len(devs), F,
+                                                degree)
+        perm, ok = meta["perm"], meta["valid"]
+        active = ok & (perm < E)
+        n_inac = ii_np.shape[0] - E
+        zeros = torch.zeros(n_inac, self.h, self.w, 128, device=self.device)
+        gathered = sharded_dba.gather_edges(
+            [torch.cat([self.net, zeros]),
+             store.inps[torch.clamp(ii_all, 0, F - 1)],
+             torch.cat([self.target, self.target_inac[sel]]),
+             torch.cat([self.weight, self.weight_inac[sel]]),
+             ii_all, jj_all], perm)
+        netv, inpv, tgtv, wgtv, iiv, jjv = (col.shard_rows(x, devs)
+                                            for x in gathered)
+        valid = col.shard_rows(torch.as_tensor(ok.reshape(-1)), devs)
+        gru = col.shard_rows(torch.as_tensor(active.reshape(-1)), devs)
+        corr = [col.move(self.corr[_t(perm[d][active[d]], self.device)], dev)
+                for d, dev in enumerate(devs)]
+
+        key = (self.mesh, F, self.h, self.w, itrs, st.metric_depth_reg,
+               st.uncertainty_aware)
+        step = self._sharded_steps.get(key)
+        if step is None:
+            step = sharded_track.make_sharded_track_step(
+                self.mesh, F, (self.h, self.w), PMAX, iters=itrs,
+                metric_depth_reg=st.metric_depth_reg,
+                uncertainty_aware=st.uncertainty_aware)
+            self._sharded_steps[key] = step
+        sh, sw = kstore.slice_hw(*store.mono_disps_up.shape[-2:])
+        poses, disps, disps_up, damping = (store.poses, store.disps,
+                                           store.disps_up, self.damping)
+        for _ in range(n):
+            (netv, tgtv, wgtv, damping, poses, disps, disps_up) = step(
+                self.model, poses, disps, disps_up, store.intrinsics,
+                store.uncertainties_inv, store.mono_disps,
+                store.mono_mask_up[:, sh, sw], netv, inpv, tgtv, wgtv, corr,
+                iiv, jjv, valid, gru, damping, meta["groups"], meta["owner"],
+                t0, t1)
+
+        # the active rows back into the graph's storage
+        flat = _t(np.where(active.reshape(-1))[0], self.device)
+        rows = _t(perm.reshape(-1)[active.reshape(-1)], self.device)
+        for name, xs in (("net", netv), ("target", tgtv), ("weight", wgtv)):
+            getattr(self, name)[rows] = col.unshard_rows(xs, self.device)[flat]
+        self.damping.copy_(damping)
+        store.poses.copy_(poses)
+        store.disps.copy_(disps)
+        store.disps_up.copy_(disps_up)
+        self.age += n
+        return n, torch.full((), float("nan"), device=self.device)
 
     def _oracle_targets(self, ii, jj):
         """Ground-truth reprojection targets with confidence 0.9."""

@@ -21,7 +21,7 @@ from .factor_graph import FactorGraph
 
 class Frontend:
     def __init__(self, state, model, cfg, backend=None,
-                 uncertainty_update_fn=None):
+                 uncertainty_update_fn=None, mesh=None):
         self.state = state
         self.cfg = cfg
         t = cfg["tracking"]
@@ -45,7 +45,8 @@ class Frontend:
         self.uncertainty_update_fn = uncertainty_update_fn  # () -> None
 
         self.graph = FactorGraph(state, model,
-                                 max_factors=self.frontend_max_factors)
+                                 max_factors=self.frontend_max_factors,
+                                 mesh=mesh)
         self.t1 = 0
         self.is_initialized = False
         self.max_consecutive_drop = (self.max_age / self.iters1) // 3

@@ -44,6 +44,7 @@ deformations.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Callable, Dict, List, Optional
 
@@ -189,10 +190,11 @@ class Mapper:
 
     def __init__(self, state, cfg, uncer_mlp: Optional[UncertaintyMLP] = None,
                  rng_seed: int = 0, device="cuda",
-                 draw_fn: Optional[Callable] = None):
+                 draw_fn: Optional[Callable] = None, mesh=None):
         self.state = state
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         mc = cfg["mapping"]
         self.mc = mc
         tr = mc["Training"]
@@ -230,8 +232,30 @@ class Mapper:
         self.intrinsics_full = state.store.intrinsics.to(self.device) * 8.0
 
         sh_deg = 3 if tr.get("spherical_harmonics", False) else 0
+        # mesh mode, as the JAX mapper: the capacity padded to a multiple of
+        # the shards, the Gaussian/tile-sharded renderer built (per-shard
+        # lists of max(64, list capacity / D) slots, rounded up so that the
+        # merged list is a multiple of the 64-slot chunk; the JAX rounding
+        # misses that for D = 5 or 7 and raises) and the map made ready for
+        # the mesh. As in the JAX package, _opt_segment does not render
+        # through mesh_render_fn: the optimization renders the whole map
+        # with render_fused.
+        self.mesh_render_fn = None
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+
+            D = mesh.size
+            self.capacity = pmesh.pad_gaussian_capacity(self.capacity, D)
+            step = 64 // math.gcd(64, D)
+            cap_loc = -(-max(64, -(-self.render_list_capacity // D))
+                        // step) * step
+            self.mesh_render_fn = pmesh.make_gsharded_render_fn(
+                mesh, self.image_size, capacity_local=cap_loc, chunk=64,
+                sh_degree=sh_deg, bin_kw=self.bin_kw)
         self.gaussians = gm.create(self.capacity, max_sh_degree=sh_deg,
                                    device=self.device)
+        if mesh is not None:
+            self.gaussians = pmesh.shard_gaussian_map(self.gaussians, mesh)
         fd = mc["uncertainty_params"]["feature_dim"]
         self.vstore = viewpoints.create(
             state.store.poses.shape[0], ht, wd, (ht // 14, wd // 14), fd,
@@ -470,7 +494,11 @@ class Mapper:
 
     @float32_convs()   # the loss's backward convolves too
     def _opt_segment(self, K, view_pool, probs, freeze_after,
-                     initialization=False):
+                     initialization=False, render_fn=None):
+        """K mapping iterations on views drawn from view_pool. render_fn,
+        if given, replaces the render: (params, alive, w2c, intrinsics,
+        mean2d_offset) -> RenderOutput (the JAX ``_opt_segment`` hook, e.g.
+        ``parallel.mesh.make_gsharded_render_fn``)."""
         fh, fw = self.vstore.features.shape[1:3]
         stride = self.loss_cfg["uncertainty_params"]["reg_stride"]
         n_samples = max(1, 5 * fh * fw // (stride ** 4))
@@ -491,7 +519,7 @@ class Mapper:
             for i in range(K):
                 loss, overflow = self._opt_step(
                     int(idxs[i]), freeze[i], int(d_base[i]), d_samples[i],
-                    self.iteration_count + i, initialization)
+                    self.iteration_count + i, initialization, render_fn)
                 seg_losses.append(loss)
                 ovf = torch.maximum(ovf, overflow)
             ls = torch.stack(seg_losses).cpu().tolist()
@@ -512,7 +540,7 @@ class Mapper:
         return ls
 
     def _opt_step(self, idx, freeze, d_base, d_samples, it_count,
-                  initialization):
+                  initialization, render_fn=None):
         """One mapping iteration on view idx: render, losses, three Adams.
         Returns (loss, overflow) as device tensors."""
         g = self.gaussians
@@ -523,12 +551,17 @@ class Mapper:
         exposure = self.vstore.exposure[idx].clone().requires_grad_(True)
         m2d = torch.zeros(self.capacity, 2, device=self.device,
                           requires_grad=True)
-        out = self._render_fn()(
-            leaves.xyz, gm.get_scaling(leaves), gm.get_rotation_xyzw(leaves),
-            gm.get_opacity(leaves), gm.get_sh(leaves), self.vstore.w2c[idx],
-            self.intrinsics_full, self.image_size, alive=g.aux.alive,
-            capacity=self.render_list_capacity, chunk=64, mean2d_offset=m2d,
-            bin_kw=self.bin_kw)
+        if render_fn is not None:
+            out = render_fn(leaves, g.aux.alive, self.vstore.w2c[idx],
+                            self.intrinsics_full, mean2d_offset=m2d)
+        else:
+            out = self._render_fn()(
+                leaves.xyz, gm.get_scaling(leaves),
+                gm.get_rotation_xyzw(leaves), gm.get_opacity(leaves),
+                gm.get_sh(leaves), self.vstore.w2c[idx], self.intrinsics_full,
+                self.image_size, alive=g.aux.alive,
+                capacity=self.render_list_capacity, chunk=64,
+                mean2d_offset=m2d, bin_kw=self.bin_kw)
         gt = self.vstore.colors[idx].to(torch.float32)
         ref_depth = self.vstore.depths[idx]
         mlp_params = list(self.uncer_mlp.parameters())

@@ -73,10 +73,17 @@ def uncertainty_update(state, mlp, train_frac_fix: float):
 class SLAM:
     """depth_fn / feat_fn: image -> metric depth (H, W) / DINO features
     (H/14, W/14, D). model: a DroidNet (default: ``tracking.pretrained``,
-    else seeded random weights). uncer_mlp and draw_fn go to the Mapper."""
+    else seeded random weights). uncer_mlp and draw_fn go to the Mapper.
+
+    Mesh mode (``parallel.n_devices`` > 1, ``run.py --mesh N``): a mesh of
+    the first N cards (``parallel.mesh.make_mesh``, which raises when fewer
+    are visible) routes the frontend's network updates through the
+    edge-sharded track step and gives the mapper its padded capacity and
+    sharded renderer, as the JAX system does. ``mesh`` passes an explicit
+    mesh instead (e.g. two shards on one card); it wins over the config."""
 
     def __init__(self, cfg, stream, depth_fn=None, feat_fn=None, model=None,
-                 uncer_mlp=None, draw_fn=None, device="cuda"):
+                 uncer_mlp=None, draw_fn=None, device="cuda", mesh=None):
         self.cfg = cfg
         self.stream = stream
         self.device = torch.device(device)
@@ -91,10 +98,15 @@ class SLAM:
         if self.uncertainty_aware and not up["activate"]:
             raise ValueError("uncertainty-aware tracking needs "
                              "uncertainty-aware mapping")
-        if int(cfg.get("parallel", {}).get("n_devices", 0) or 0) > 1:
-            raise NotImplementedError(
-                "parallel.n_devices > 1 (--mesh): the multi-device mode is "
-                "not ported yet")
+        n_dev = int(cfg.get("parallel", {}).get("n_devices", 0) or 0)
+        if mesh is None and n_dev > 1:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_dev, axis="g")
+        self.mesh = mesh
+        if mesh is not None:
+            PRINTER.print(f"mesh mode: {mesh.size} shards on "
+                          f"{[str(d) for d in mesh.devices]}", FontColor.INFO)
         debug.maybe_enable_from_cfg(cfg)
         # pause / stop / checkpoint requests; the HTTP endpoint only when
         # asked for (gui_http_port, or gui on), its port published for the
@@ -124,7 +136,7 @@ class SLAM:
 
         self.mapper = Mapper(self.state, cfg, uncer_mlp=uncer_mlp,
                              rng_seed=cfg.get("setup_seed", 43),
-                             device=self.device, draw_fn=draw_fn)
+                             device=self.device, draw_fn=draw_fn, mesh=mesh)
         train_frac = up["train_frac_fix"]
 
         def update_uncertainty():
@@ -133,7 +145,8 @@ class SLAM:
         self.backend = Backend(self.state, model, cfg,
                                uncertainty_update_fn=update_uncertainty)
         self.frontend = Frontend(self.state, model, cfg, backend=self.backend,
-                                 uncertainty_update_fn=update_uncertainty)
+                                 uncertainty_update_fn=update_uncertainty,
+                                 mesh=mesh)
         self.feat_fn = feat_fn
         self.motion_filter = MotionFilter(
             self.state, model, thresh=t["motion_filter"]["thresh"],

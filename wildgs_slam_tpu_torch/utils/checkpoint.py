@@ -122,6 +122,12 @@ def load_slam_checkpoint(path: str, slam) -> Dict[str, Any]:
     _get(arrays, "gaussians/adam/mu/", g.mu)
     _get(arrays, "gaussians/adam/nu/", g.nu)
     g.count = int(arrays["gaussians/adam/count"])
+    if getattr(mapper, "mesh", None) is not None:
+        # mesh mode: the map (its capacity padded for the mesh) is checked
+        # against the mesh again; the sharded functions split it per call
+        from ..parallel import mesh as pmesh
+
+        mapper.gaussians = pmesh.shard_gaussian_map(g, mapper.mesh)
     _get(arrays, "vstore/", mapper.vstore)
     adam = mapper.uncer_adam
     for (name, p), m, v in zip(mapper.uncer_mlp.named_parameters(), adam.mu,
