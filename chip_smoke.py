@@ -23,7 +23,8 @@ Phases, each printing its own lines:
      version's time and, where one exists, one library call's device time;
      K4's zero fill and its add apart;
   5. the mapper's keyframe path through Mapper's entry points
-     (initialize_mapper, then on_keyframe) at the full widths of
+     (initialize_mapper, then on_keyframe; 225 iterations per keyframe
+     after the init's 1,050, half the config's 450) at the full widths of
      configs/Dynamic/TUM_RGBD/tum_dynamic.yaml on a seeded synthetic scene,
      with the kernels' launch counts, which must equal the mapping steps run,
      and a torch.profiler summary;
@@ -107,9 +108,9 @@ Phases, each printing its own lines:
      SH and pose_delta within tests/test_multichip.py's tolerances wherever
      no shard's tile list overflows (each shard's drops printed), ms per
      forward+backward, K1-K4 launched D times per render. (d) SLAM.run()
-     on 16 frames of phase 8's TUM sequence with the seeded DROID weights
+     on 12 frames of phase 8's TUM sequence with the seeded DROID weights
      (the frontend's updates through the edge-sharded step), with a 2-shard
-     mesh killed at 8 frames and resumed from its checkpoint, and without
+     mesh killed at 6 frames and resumed from its checkpoint, and without
      a mesh: the same keyframe count, final_gs.ply written, the loop-end
      differences printed beside tests/test_mesh_e2e.py's tolerances. (b)
      make_sharded_ba against dba.ba, with and without the sensor term,
@@ -119,8 +120,22 @@ Phases, each printing its own lines:
      shard's smaller one rounds differently), eight with it on printed,
      ms per iteration and peak memory. (e)
      run.build(--mesh 2) raises make_mesh's message on one card;
-  12. one JSON line describing every kernel;
-  13. the card again, then the last line {"ok": true, "device": {...}}.
+  12. the measuring programs. (a) python -m wildgs_slam_tpu_torch.bench
+     as a user runs it (its last line must carry kernel_check "ok" and a
+     numeric bin_overflow), then bench.main in-process at ITERS=50 with the
+     launch counters (K1-K4 each once per step run plus the gate's
+     render), then
+     K1-K4 against their plain versions and timed at the bench's table
+     (T=300 tiles, K=192 slots, N=5,000). (b) scripts/profile_rasterizer
+     and scripts/profile_pipeline in-process (its profile_summary.json must
+     hold map.* and track.* phases), profile_map_opt and
+     profile_global_ba as subprocesses, at the cuts its `reduced` line
+     prints. (c) Per phase, the BA group tables built, the largest
+     source-frame degree and the edges past the 16th that the Schur terms
+     left out;
+  13. one JSON line describing every kernel (with its bench-shape numbers
+     under "bench_shape");
+  14. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -175,7 +190,8 @@ from wildgs_slam_tpu_torch.slam.state import SlamState  # noqa: E402
 from wildgs_slam_tpu_torch.utils.eval_traj import (  # noqa: E402
     ape_statistics, read_metric)
 from wildgs_slam_tpu_torch.utils.png import read_png, write_png  # noqa
-from wildgs_slam_tpu_torch.utils.profiling import TIMER  # noqa: E402
+from wildgs_slam_tpu_torch.utils.profiling import (  # noqa: E402
+    TIMER, card_line, device_summary)
 from wildgs_slam_tpu_torch.utils.resample import resize_u8  # noqa: E402
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
@@ -192,6 +208,8 @@ FWD_OPS_PER_ALIVE_PAIR = 15
 BWD_OPS_PER_ALIVE_PAIR = 55
 N_INIT_KEYFRAMES = 5     # keyframes at initialize_mapper
 N_ONLINE_KEYFRAMES = 3   # on_keyframe calls after it
+SLICE_MAPPING_ITERS = 225   # per on_keyframe call (450 in the config): depth
+                            # cut to keep the script in its time limit
 TOL = dict(color=1e-5, depth=1e-4, alpha=1e-5, tfin=1e-5, tentry=1e-5)
 BWD_MAX_REL = 1e-5
 SCATTER_MAX_REL = 1e-5   # K4: the atomics sum in another order
@@ -211,15 +229,8 @@ SYSTEM_STEP = TRACK_STEP / 2   # its motion per frame: frames 21 apart lie
                                # 18 px apart, under loop_thresh (25), so
                                # loop closure finds pairs and runs its BA
 SYSTEM_CUTS = {"init_itr_num": 150, "mapping_itr_num": 40,
-               "final_refine_iters": 600}   # depth only
+               "final_refine_iters": 300}   # depth only
 SYSTEM_PSNR_MIN = 16.0   # dB, the bar of tests/test_integrated_ate.py
-
-
-def card_line(query="name,power.limit") -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip(
-        ).splitlines()[0]
 
 
 def t32(a, dev):
@@ -250,9 +261,15 @@ def mapping_scene(dev, n=262144, h=384, w=512, seed=0):
 
 
 def mapping_table(dev, n=262144, h=384, w=512, capacity=512, seed=0):
-    """Counts and packed table of mapping_scene through the port's
-    projection, binning and table gather."""
+    """Counts and packed table of mapping_scene."""
     gauss, w2c, intr = mapping_scene(dev, n, h, w, seed)
+    return scene_table(gauss, w2c, intr, h, w, capacity)
+
+
+def scene_table(gauss, w2c, intr, h, w, capacity):
+    """Counts and packed table of a scene through the port's projection,
+    binning and table gather: (counts, table, overflow, tiles per row,
+    attrs, ids)."""
     proj = tr.project_gaussians(*gauss, w2c, intr, (h, w))
     bins = tr.bin_gaussians(proj.mean2d, proj.radius, proj.depth, proj.valid,
                             (h, w), capacity=capacity)
@@ -332,15 +349,21 @@ def device_ms(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    _, total_us, n_ops, by_name = device_summary(prof)
-    if n_ops == 0:
-        raise AssertionError("torch.profiler recorded no device operation")
-    return total_us / 1e3 / reps, {k: us / 1e3 / reps
-                                   for k, (us, _) in by_name.items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        _, total_us, n_ops, by_name = device_summary(prof)
+        if n_ops:
+            return total_us / 1e3 / reps, {k: us / 1e3 / reps
+                                           for k, (us, _) in by_name.items()}
+    # the measuring guide's fallback: a profiler that recorded nothing in
+    # three tries gives way to CUDA events, which include the host's waits
+    ms = time_ms(fn, reps, rounds=5)
+    print(f"torch.profiler recorded no device operation in 3 tries: CUDA "
+          f"events instead, {ms:.4f} ms per call (host waits included)")
+    return ms, {}
 
 
 def timed_row(name, fn, plain, rounds, reps, plain_reps, plain_rounds):
@@ -420,7 +443,7 @@ def table_kernel_rows(attrs, ids, dev):
               f"by {by}: {nbytes / 1e6:.2f} MB; {b / ms * 100:.1f}% of bound; "
               f"SM clock, max SM clock now: "
               f"{card_line('clocks.sm,clocks.max.sm')}")
-        if name == "table_scatter_add":
+        if name == "table_scatter_add" and by_name:
             fill = sum(v for k, v in by_name.items() if "emset" in k)
             print(f"K4 apart: zero fill of {N * 64 / 1e6:.2f} MB {fill:.4f} "
                   f"ms, add kernel {ms - fill:.4f} ms per call (device)")
@@ -497,11 +520,19 @@ def k2_overflow_check(counts, table, tw, ck, dev):
 def kernel_phase(dev):
     counts, table, overflow, tw, attrs, ids = mapping_table(dev)
     T, K, _ = table.shape
-    ck = 64
-    n_chunks = K // ck
-    print(f"parity scene: N={mapping_table.__defaults__[0]} T={T} K={K} ck={ck} "
+    print(f"parity scene: N={mapping_table.__defaults__[0]} T={T} K={K} ck=64 "
           f"counts mean={float(counts.float().mean()):.1f} "
           f"max={int(counts.max())} overflow={overflow}")
+    return kernel_rows(dev, counts, table, tw, attrs, ids,
+                       overflow_check=not KERNELS_FROM)
+
+
+def kernel_rows(dev, counts, table, tw, attrs, ids, ck=64,
+                overflow_check=False):
+    """K1-K4 against their plain versions on one table, then timed beside
+    their bounds, plain versions and library calls: one row each."""
+    T, K, _ = table.shape
+    n_chunks = K // ck
     tid = torch.arange(T, dtype=torch.int32, device=dev)
     bg = torch.tensor([0.1, 0.5, 0.9], device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -527,7 +558,7 @@ def kernel_phase(dev):
     print(f"K2 dattrs vs plain: max-abs {bwd_abs:.3e} max-rel {bwd_rel:.3e}")
     if not bwd_rel < BWD_MAX_REL:
         raise AssertionError(f"K2 max-rel {bwd_rel} >= {BWD_MAX_REL}")
-    if not KERNELS_FROM:
+    if overflow_check:
         k2_overflow_check(counts, table, tw, ck, dev)
 
     # the work these inputs need: live slots of the chunks a tile opens, and
@@ -676,28 +707,6 @@ def room_scene(cfg, n_kf, seed=0, step=1.0, camera=None, first=0,
     return (H, W), intr, frames
 
 
-def device_summary(prof):
-    """From a torch.profiler trace: the device's busy time (the union of its
-    operations' intervals, so that overlapping operations count once), the
-    sum of the operations' own times, their count, and {name: [us, n]}."""
-    from torch.autograd import DeviceType
-
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            s = by_name.setdefault(e.name, [0.0, 0])
-            s[0] += e.time_range.elapsed_us()
-            s[1] += 1
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    total = sum(us for us, _ in by_name.values())
-    return busy, total, len(spans), by_name
-
-
 def profile_steps(mapper, n_steps):
     """torch.profiler over n_steps mapping iterations: wall and device time
     per step, device-busy share, kernel count and the top kernels."""
@@ -779,8 +788,12 @@ def slice_phase(dev):
                         "prior = exact depth")
     reduced["dino_feats"] = "random normal (numpy seed 0)"
     reduced["uncertainty MLP"] = "flax-style init from torch seed 1"
+    tr_cfg = cfg["mapping"]["Training"]
+    reduced["mapping_itr_num"] = (f"{tr_cfg['mapping_itr_num']} -> "
+                                  f"{SLICE_MAPPING_ITERS}")
     print("reduced:", json.dumps(reduced))
     cfg["tracking"]["buffer"] = n_kf
+    tr_cfg["mapping_itr_num"] = SLICE_MAPPING_ITERS
 
     (H, W), intr, frames = room_scene(cfg, n_kf)
     state = SlamState.create(cfg, H, W, intr, buffer=n_kf, device=dev)
@@ -2347,8 +2360,8 @@ def jpeg_phase(dev, ckpt):
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = (2, 8)     # shards of the meshes, all on cuda:0
-MESH_FRAMES = 16         # (d): frames of phase 8's TUM sequence
-MESH_KILL = 8            # (d): leg A's --max_frames; B resumes there
+MESH_FRAMES = 12         # (d): frames of phase 8's TUM sequence
+MESH_KILL = 6            # (d): leg A's --max_frames; B resumes there
 MESH_BUFFER = 32         # (d): keyframe buffer (the config's 350)
 MESH_WARMUP = 4          # (d): keyframes before the frontend starts (12)
 MESH_CUTS = {"init_itr_num": 60, "mapping_itr_num": 20,
@@ -2490,7 +2503,7 @@ def mesh_tracking_check(dev, pmesh, sdba, col, st, g):
     n = st.counter
 
     # (b) the BA of the window, with and without the sensor term
-    t0, t1, sel, ii_all, jj_all = g._window(None, None, True)
+    t0, t1, sel, ii_all, jj_all, groups = g._window(None, None, True)
     tgt = torch.cat([g.target, g.target_inac[sel]])
     wgt = torch.cat([g.weight, g.weight_inac[sel]])
     if st.uncertainty_aware:
@@ -2499,19 +2512,19 @@ def mesh_tracking_check(dev, pmesh, sdba, col, st, g):
     sh, sw = kstore.slice_hw(*store.mono_disps_up.shape[-2:])
     sensor = (store.mono_disps, store.mono_mask_up[:, sh, sw])
     ii_np, jj_np = ii_all.cpu().numpy(), jj_all.cpu().numpy()
-    degree = max(fg.GROUP_DEGREE, int(np.bincount(ii_np).max()))
     bcfg = dba.BAConfig(lm=1e-4, ep=0.1)
     print(f"mesh (b): window [{t0}, {t1}) of {n} keyframes, {len(ii_np)} "
           f"edges ({len(sel)} inactive), largest source-frame degree "
           f"{int(np.bincount(ii_np).max())}")
     for use_sensor in (False, True):
         ref = dba.ba(store.poses, store.disps, store.intrinsics, tgt, wgt,
-                     eta, ii_all, jj_all, t0, t1, iters=2, cfg=bcfg,
+                     eta, ii_all, jj_all, groups, t0, t1, iters=2, cfg=bcfg,
                      sensor_disps=sensor[0] if use_sensor else None,
                      sensor_valid=sensor[1] if use_sensor else None)
         for D in MESH_SHARDS:
             mesh = pmesh.make_mesh(devices=[dev] * D, axis="edge")
-            meta = sdba.shard_edges_by_frame(ii_np, jj_np, D, F, degree)
+            meta = sdba.shard_edges_by_frame(ii_np, jj_np, D, F,
+                                             fg.GROUP_DEGREE)
             e = sdba.gather_edges([tgt, wgt, ii_all, jj_all], meta["perm"])
             e.append(torch.as_tensor(meta["valid"].reshape(-1), device=dev))
             shards = [col.shard_rows(x, mesh.devices) for x in e]
@@ -2782,6 +2795,166 @@ def mesh_phase(dev):
     return {k: render_launches[k] + slam_launches[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the measuring programs (bench.py, scripts/), and how often the
+# BA's group table left out edges past a frame's 16th
+# ---------------------------------------------------------------------------
+
+PROGRAM_DIR = os.path.join(HERE, "build", "chip_smoke", "programs")
+PIPELINE_ARGS = ["--frames", "12", "--mapping_iters", "10", "--init_iters",
+                 "20", "--final_refine", "10"]
+MAP_OPT_ARGS = ["8", "6"]            # K iterations per segment, keyframes
+GLOBAL_BA_FRAMES = "8"
+BENCH_GATE_ITERS = 50   # the in-process bench's ITERS (BENCH_ITERS): the
+                        # launch gate needs no 400-step timing again
+PHASE = ["setup"]                    # the phase whose BA tables are tallied
+GROUP_TALLY = {}    # phase -> [tables, largest degree, edges past the cap,
+                    #           tables with such edges]
+
+
+def tally_groups(ii, degree):
+    ii = np.asarray(ii)
+    ii = ii[ii >= 0]
+    deg = np.bincount(ii) if ii.size else np.zeros(1, np.int64)
+    past = int(np.maximum(deg - degree, 0).sum())
+    t = GROUP_TALLY.setdefault(PHASE[0], [0, 0, 0, 0])
+    t[0] += 1
+    t[1] = max(t[1], int(deg.max()))
+    t[2] += past
+    t[3] += past > 0
+
+
+def count_group_tables():
+    """Wrap the two functions that build the BA's group tables
+    (dba.make_edge_groups, sharded_dba.shard_edges_by_frame) so that every
+    table built is tallied under PHASE[0]."""
+    from wildgs_slam_tpu_torch.ops import dba
+    from wildgs_slam_tpu_torch.parallel import sharded_dba
+
+    make, shard = dba.make_edge_groups, sharded_dba.shard_edges_by_frame
+
+    def counted_make(ii, max_frames, max_degree):
+        tally_groups(ii, max_degree)
+        return make(ii, max_frames, max_degree)
+
+    def counted_shard(ii, jj, n_devices, max_frames, degree, e_cap=None):
+        tally_groups(ii, degree)
+        return shard(ii, jj, n_devices, max_frames, degree, e_cap)
+    dba.make_edge_groups = counted_make
+    sharded_dba.shard_edges_by_frame = counted_shard
+
+
+def run_program(label, module, args, env=None, timeout=600):
+    """python -m <module> <args> from the repository root, as a user runs
+    it; its output is printed with `label`, and a failure raises."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=HERE,
+                         capture_output=True, text=True, timeout=timeout,
+                         env={**os.environ, **(env or {})})
+    for line in out.stdout.strip().splitlines():
+        print(f"  {label}| {line}")
+    print(f"{label}: exit {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0:
+        raise AssertionError(f"{label} failed:\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def bench_check(dev):
+    """(a) The bench as a user runs it, then in-process with the launch
+    counters, then K1-K4 at its table's shape."""
+    from wildgs_slam_tpu_torch import bench
+
+    last = json.loads(run_program("bench", "wildgs_slam_tpu_torch.bench",
+                                  []).strip().splitlines()[-1])
+    if last["kernel_check"] != "ok" or not isinstance(last["bin_overflow"],
+                                                      int):
+        raise AssertionError(f"bench: {last}")
+    iters, bench.ITERS = bench.ITERS, BENCH_GATE_ITERS
+    try:
+        reset_launches()
+        res = bench.main([])
+        launches = read_launches()
+    finally:
+        bench.ITERS = iters
+    want = res["steps"] + res["renders"]
+    print(f"bench in-process: {res['steps']} steps + {res['renders']} gate "
+          f"render -> launches {json.dumps(launches)} (want {want} each)")
+    if res["result"]["kernel_check"] != "ok" or any(
+            n != want for n in launches.values()):
+        raise AssertionError("bench: K1-K4 launches differ from its steps "
+                             "and renders, or its kernel check failed")
+
+    s = bench.to_device(bench.make_scene(0), dev)
+    counts, table, overflow, tw, attrs, ids = scene_table(
+        [s[k] for k in ("means", "scales", "rots", "opac", "sh")], s["w2c"],
+        s["intr"], bench.H, bench.W, bench.CAPACITY)
+    T, K, _ = table.shape
+    print(f"bench-shape table: N={bench.N_GAUSS} T={T} K={K} "
+          f"ck={bench.CHUNK} counts mean={float(counts.float().mean()):.1f} "
+          f"max={int(counts.max())} overflow={overflow}; every kernel's "
+          f"inputs and outputs fit the 50 MB L2, so back-to-back launches "
+          f"may beat the HBM bound")
+    rows = kernel_rows(dev, counts, table, tw, attrs, ids, ck=bench.CHUNK)
+    return last, launches, {r["name"]: r for r in rows}
+
+
+def group_tally_report():
+    """(c) Per phase: group tables built for the BA, the largest
+    source-frame degree met, and the edges past the 16th left out."""
+    from wildgs_slam_tpu_torch.slam import factor_graph as fg
+
+    for ph, (n, deg, past, hit) in sorted(GROUP_TALLY.items()):
+        print(f"BA group tables, phase {ph}: {n} built, largest "
+              f"source-frame degree {deg}, {past} edges past the "
+              f"{fg.GROUP_DEGREE}th left out of the Schur terms, in {hit} "
+              f"tables")
+
+
+def programs_phase(dev):
+    """Phase 12: the bench, the profile scripts, the BA tally."""
+    from wildgs_slam_tpu_torch.scripts import (profile_pipeline,
+                                               profile_rasterizer)
+
+    print("reduced (phase 12): profile_pipeline "
+          + " ".join(PIPELINE_ARGS) + " (depth only; 384x512, capacity "
+          "131072 as the script's defaults); profile_map_opt K="
+          f"{MAP_OPT_ARGS[0]} n_kf={MAP_OPT_ARGS[1]}; profile_global_ba "
+          f"GB_FRAMES={GLOBAL_BA_FRAMES}; profile_rasterizer 10 steps")
+    t_0 = time.perf_counter()
+    last, launches, bench_rows = bench_check(dev)
+    print(f"phase 12 (a): {time.perf_counter() - t_0:.1f} s")
+
+    t_b = time.perf_counter()
+    raster = profile_rasterizer.main([])
+    print(f"profile_rasterizer: {json.dumps(raster)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(PROGRAM_DIR, "profile_pipeline")
+    shutil.rmtree(out, ignore_errors=True)
+    profile_pipeline.main(PIPELINE_ARGS + ["--out", out])
+    with open(os.path.join(out, "profile_summary.json")) as f:
+        summary = json.load(f)
+    phases = sorted(k for k in summary if k != "_meta")
+    print(f"profile_summary.json: {len(phases)} phases, _meta "
+          f"{json.dumps(summary['_meta'])}")
+    for need in ("map.", "track."):
+        if not any(k.startswith(need) for k in phases):
+            raise AssertionError(f"profile_summary.json has no {need}* "
+                                 f"phase: {phases}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_program("profile_map_opt",
+                "wildgs_slam_tpu_torch.scripts.profile_map_opt",
+                [os.path.join(PROGRAM_DIR, "map_opt_trace"), *MAP_OPT_ARGS])
+    run_program("profile_global_ba",
+                "wildgs_slam_tpu_torch.scripts.profile_global_ba", [],
+                env={"GB_FRAMES": GLOBAL_BA_FRAMES})
+    print(f"phase 12 (b): {time.perf_counter() - t_b:.1f} s")
+    group_tally_report()
+    return last, launches, bench_rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2818,9 +2991,13 @@ def main():
             r["name"]: r["ms"] for r in rows}}))
         return
     small_render_check(dev)
+    count_group_tables()
     launches = slice_phase(dev)
+    PHASE[0] = "6"
     track_launches = tracking_phase(dev)
+    PHASE[0] = "7"
     system_launches = system_phase(dev)
+    PHASE[0] = "8-10"
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = priors_phase(dev)
@@ -2836,8 +3013,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t_mesh = time.perf_counter()
+    PHASE[0] = "11"
     mesh_launches = mesh_phase(dev)
     print(f"phase 11: {time.perf_counter() - t_mesh:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_prog = time.perf_counter()
+    PHASE[0] = "12"
+    bench_last, bench_launches, bench_rows = programs_phase(dev)
+    print(f"phase 12: {time.perf_counter() - t_prog:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -2847,7 +3031,13 @@ def main():
             "entry": entry_launches[row["name"]],
             "nonmetric": nonmetric_launches[row["name"]],
             "jpeg": jpeg_launches[row["name"]],
-            "mesh": mesh_launches[row["name"]]}
+            "mesh": mesh_launches[row["name"]],
+            "bench": bench_launches[row["name"]]}
+        b = bench_rows[row["name"]]
+        row["bench_shape"] = {k: b[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    print(f"bench: {json.dumps(bench_last)}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

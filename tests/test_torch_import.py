@@ -1,6 +1,9 @@
 """The port stands alone: importing ``wildgs_slam_tpu_torch`` and every one of
 its submodules loads no ``jax``, no ``flax`` and nothing of the JAX package,
-and no port source file or ``chip_smoke.py`` names one in an import."""
+and no port source file or ``chip_smoke.py`` names one in an import; its
+measuring programs (``bench.py``, ``scripts/``) are among them, and its
+sweep scripts run the port's entry point and summarizer, never the
+repository's ``run.py`` or ``scripts/``."""
 
 import ast
 import pathlib
@@ -44,11 +47,20 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+SCRIPTS = ("profile_rasterizer", "profile_mapping_raster", "profile_map_opt",
+           "profile_global_ba", "profile_pipeline", "summarize_pose_eval")
+SWEEPS = ("run_tum_dynamic_all.sh", "run_bonn_all.sh",
+          "run_wild_slam_mocap_all.sh")
+
+
 def test_sources_name_no_jax_module():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for rel in ONE_SEMANTICS:    # the multi-device modules among them
         assert PORT / rel in files, rel
+    for name in SCRIPTS:         # and the measuring programs
+        assert PORT / "scripts" / f"{name}.py" in files, name
+    assert PORT / "bench.py" in files
     for path in files:
         bad = [m for m in _imports(path) if _forbidden(m)]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
@@ -85,3 +97,15 @@ def test_port_sources_import_no_cv2_or_pil():
     for path in files:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("cv2", "PIL")]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_sweeps_run_the_port():
+    for name in SWEEPS:
+        text = (PORT / "scripts" / name).read_text()
+        assert "python -m wildgs_slam_tpu_torch.run " in text, name
+        assert ("python -m wildgs_slam_tpu_torch.scripts.summarize_pose_eval"
+                in text), name
+        assert "--device cuda" in text, name
+        for line in text.splitlines():
+            code = line.split("#", 1)[0]
+            assert "run.py" not in code and "scripts/" not in code, line

@@ -175,7 +175,8 @@ def test_sharded_dba_matches_jax_and_single_device(use_sensor):
                  t1, *sens)
     rp, rd = tdba.ba(T(p["poses0"]), T(p["disps0"]), T(INTR), T(p["target"]),
                      T(p["weight"]), T(p["eta"]), T(p["ii"], torch.int64),
-                     T(p["jj"], torch.int64), t0, t1, iters=2,
+                     T(p["jj"], torch.int64),
+                     tdba.make_edge_groups(p["ii"], F, 16), t0, t1, iters=2,
                      sensor_disps=sens[0] if use_sensor else None,
                      sensor_valid=sens[1] if use_sensor else None)
     assert float((tp - T(p["poses0"])).abs().max()) > 1e-3   # it moved

@@ -333,8 +333,8 @@ def test_ba(sensor, motion_only):
                      J(ii), J(jj), jnp.ones(len(ii), bool), J(groups), t0, t1,
                      iters=2, motion_only=motion_only, pmax=F_, **jkw)
     tp, td = tdba.ba(T(poses), T(disps), T(intr), T(tgt), T(wgt), T(eta),
-                     T(ii), T(jj), t0, t1, iters=2, motion_only=motion_only,
-                     **tkw)
+                     T(ii), T(jj), tdba.make_edge_groups(ii, F_, 16), t0, t1,
+                     iters=2, motion_only=motion_only, **tkw)
     rp, rd = np.asarray(rp), np.asarray(rd)
     assert np.abs(rp - poses).max() > 1e-3       # the solve moved the poses
     assert np.abs(tp.numpy() - rp).max() / np.abs(rp).max() < 1e-5

@@ -13,7 +13,11 @@ outside it do not enter the pose system. The Schur complement is taken
 directly: per source frame k, the edges' depth-coupling blocks are summed
 into a (P, 6, H*W) matrix E_k by pose slot, and S = H - Σ_k E_k Q_k E_kᵀ
 (Q = 1/C), one batched product; it equals the JAX per-frame group scan,
-which sums the same outer products pair by pair. The solve is a Cholesky;
+which sums the same outer products pair by pair. As there, the Schur
+products and their right-hand-side term take only the edges that the group
+table lists (``make_edge_groups``: at most the first D edges of each source
+frame, in edge order); H, the rhs, C and the depth back-substitution take
+every edge. The solve is a Cholesky;
 a system that is not positive definite yields a zero pose step, as the
 JAX ``cho_solve`` NaNs do after ``nan_to_num``.
 """
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import lie, projective
@@ -32,6 +37,28 @@ class BAConfig(NamedTuple):
     ep: float = 0.1
     alpha: float = 0.05       # metric-depth prior mixing
     min_disp: float = 1e-5
+
+
+def make_edge_groups(ii, max_frames: int, max_degree: int):
+    """Host-side (F, D) int32 table of the edge indices whose source frame
+    is each row's frame, in edge order, -1 padded; edges past a frame's
+    D-th are left out."""
+    ii = np.asarray(ii)
+    groups = np.full((max_frames, max_degree), -1, np.int32)
+    fill = np.zeros(max_frames, np.int32)
+    for e, i in enumerate(ii):
+        if 0 <= i < max_frames and fill[i] < max_degree:
+            groups[i, fill[i]] = e
+            fill[i] += 1
+    return groups
+
+
+def listed_edges(groups, n_edges: int, device) -> torch.Tensor:
+    """(E,) bool: the edges that the group table lists."""
+    g = torch.as_tensor(groups, device=device).reshape(-1).long()
+    listed = torch.zeros(n_edges + 1, dtype=torch.bool, device=device)
+    listed[torch.where(g >= 0, g, n_edges)] = True
+    return listed[:n_edges]
 
 
 def _build_per_edge(poses, disps, intrinsics, target, weight, ii, jj):
@@ -80,12 +107,13 @@ def _retract_poses(poses, dx, t0, t1):
     return lie.se3_retr(poses, xi)
 
 
-def ba_iteration(poses, disps, intrinsics, target, weight, eta, ii, jj, t0,
-                 t1, cfg: BAConfig = BAConfig(), sensor_disps=None,
-                 sensor_valid=None, motion_only=False):
+def ba_iteration(poses, disps, intrinsics, target, weight, eta, ii, jj,
+                 groups, t0, t1, cfg: BAConfig = BAConfig(),
+                 sensor_disps=None, sensor_valid=None, motion_only=False):
     """One Gauss-Newton iteration. poses (F, 7), disps (F, H, W),
     intrinsics (4,), target/weight (E, H, W, 2), eta (F, H, W), ii/jj (E,)
-    int64, pose window [t0, t1). Returns (poses, disps)."""
+    int64, groups (F, D) (``make_edge_groups`` of ii), pose window
+    [t0, t1). Returns (poses, disps)."""
     F_, H, W = disps.shape
     HW = H * W
     E = ii.shape[0]
@@ -134,12 +162,15 @@ def ba_iteration(poses, disps, intrinsics, target, weight, eta, ii, jj, t0,
                                      - sensor_disps.reshape(F_, HW))
     Q = 1.0 / C
 
-    # Schur complement over the source frames
+    # Schur complement over the source frames, of the listed edges only
     frames, inv = torch.unique(ii, return_inverse=True)
     U = frames.shape[0]
+    listed = listed_edges(groups, E, dev)[:, None, None]
     Eblk = torch.zeros(U * (P + 1), 6, HW, dtype=dt, device=dev)
-    Eblk.index_add_(0, inv * (P + 1) + pi, b["Ei"])
-    Eblk.index_add_(0, inv * (P + 1) + pj, b["Ej"])
+    for slot, blk in ((pi, "Ei"), (pj, "Ej")):
+        Eblk.index_add_(0, inv * (P + 1) + slot,
+                        torch.where(listed, b[blk], torch.zeros((), dtype=dt,
+                                                                device=dev)))
     Eblk = Eblk.reshape(U, P + 1, 6, HW)[:, :P].reshape(U, P * 6, HW)
     Qf = Q[frames]
     S = (Hmat.transpose(1, 2).reshape(P * 6, P * 6)
@@ -162,14 +193,14 @@ def ba_iteration(poses, disps, intrinsics, target, weight, eta, ii, jj, t0,
     return poses, disps
 
 
-def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, t0, t1,
-       iters: int = 2, cfg: BAConfig = BAConfig(), sensor_disps=None,
+def ba(poses, disps, intrinsics, target, weight, eta, ii, jj, groups, t0,
+       t1, iters: int = 2, cfg: BAConfig = BAConfig(), sensor_disps=None,
        sensor_valid=None, motion_only=False):
     """`iters` Gauss-Newton iterations."""
     for _ in range(iters):
         poses, disps = ba_iteration(poses, disps, intrinsics, target, weight,
-                                    eta, ii, jj, t0, t1, cfg, sensor_disps,
-                                    sensor_valid, motion_only)
+                                    eta, ii, jj, groups, t0, t1, cfg,
+                                    sensor_disps, sensor_valid, motion_only)
     return poses, disps
 
 

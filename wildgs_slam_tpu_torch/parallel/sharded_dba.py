@@ -14,9 +14,9 @@ psum combines the owned frames' depth updates.
 A sharded argument is a list of per-shard tensors, each on its shard's
 device (``collectives.shard_rows`` splits a device-major array); a
 replicated argument is one tensor. Equal to ``dba.ba`` up to float32
-summation order, as long as no frame has more than ``degree`` edges (the
-group table keeps the first ``degree``, as in JAX); ``motion_only`` is not
-taken, as in JAX.
+summation order when both take the group table of ``degree`` (each
+frame's first ``degree`` edges: a shard keeps a frame's edges in their
+global order); ``motion_only`` is not taken, as in JAX.
 """
 
 from __future__ import annotations
@@ -131,10 +131,8 @@ def _local_partials(poses, disps, intrinsics, target, weight, eta, ii, jj,
     wd = wd * own_f
 
     # Schur products over the edges of the group table (owned frames)
-    in_group = torch.zeros(ii.shape[0] + 1, dtype=torch.bool, device=dev)
-    in_group[torch.where(groups >= 0, groups, ii.shape[0]).reshape(-1)
-             .long()] = True
-    sel = torch.nonzero(in_group[:-1] & edge_valid).squeeze(1)
+    sel = torch.nonzero(dba.listed_edges(groups, ii.shape[0], dev)
+                        & edge_valid).squeeze(1)
     frames, inv = torch.unique(ii[sel], return_inverse=True)
     U = frames.shape[0]
     Eblk = torch.zeros(U * (Pm + 1), 6, HW, dtype=dt, device=dev)

@@ -20,11 +20,12 @@ graph's ``_update_n_sharded``: always ``n`` iterations, no early exit and no
 iteration reproject, clamp the motion features to ±64, look up the
 correlation, run the update operator, write the damping of the edges'
 source frames, then uncertainty-weighted BA over the active and the
-selected inactive edges; stop early once the mean |delta| is at most
-``eps``; finally one convex upsample with the last iteration's mask. With
-``gt_injection`` set, the update operator is swapped for ground-truth
-reprojection targets (the oracle used by the trajectory-accuracy gates)
-and every other stage stays.
+selected inactive edges (the Schur terms of each source frame's first
+``GROUP_DEGREE`` edges only, as the JAX group table); stop early once the
+mean |delta| is at most ``eps``; finally one convex upsample with the last
+iteration's mask. With ``gt_injection`` set, the update operator is swapped
+for ground-truth reprojection targets (the oracle used by the
+trajectory-accuracy gates) and every other stage stays.
 
 A graph built with ``corr_impl="alt"`` (the backend's) stores no volumes:
 ``update_lowmem`` runs global BA with on-the-fly correlation
@@ -50,8 +51,8 @@ from . import keyframe_store as kstore
 EP_DAMP = 1e-7
 ORACLE_UP_FRAMES = 96   # slots whose disps_up the oracle refreshes
 PMAX = 96               # pose slots of the sharded step's BA (JAX pmax)
-GROUP_DEGREE = 16       # least edges per source frame in the sharded BA's
-                        # group table
+GROUP_DEGREE = 16       # edges per source frame whose Schur terms the BA
+                        # takes (the JAX graph's group_degree)
 CORR_CHUNK = 8          # edges per correlation-volume build
 LOWMEM_CHUNK = 8        # source frames per update-operator call in
                         # update_lowmem
@@ -223,7 +224,9 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def _window(self, t0, t1, use_inactive):
-        """The pose window and the inactive edges that join the BA."""
+        """The pose window, the inactive edges that join the BA and the BA's
+        group table over the active then the inactive edges (the JAX
+        graph's slot order)."""
         if use_inactive and self.ii_inac.shape[0] > 0:
             tmin = max(1, int(self.ii.min()) + 1) if t0 is None else t0
             m = (self.ii_inac >= tmin - 3) & (self.jj_inac >= tmin - 3)
@@ -234,9 +237,12 @@ class FactorGraph:
         if t1 is None:
             t1 = max(int(self.ii.max()), int(self.jj.max())) + 1
         sel = _t(np.where(m)[0], self.device)
-        ii_all = _t(np.concatenate([self.ii, self.ii_inac[m]]), self.device)
+        ii_np = np.concatenate([self.ii, self.ii_inac[m]])
+        groups = dba.make_edge_groups(ii_np, self.state.store.poses.shape[0],
+                                      GROUP_DEGREE)
+        ii_all = _t(ii_np, self.device)
         jj_all = _t(np.concatenate([self.jj, self.jj_inac[m]]), self.device)
-        return t0, t1, sel, ii_all, jj_all
+        return t0, t1, sel, ii_all, jj_all, groups
 
     def _ba_kwargs(self):
         st = self.state
@@ -269,7 +275,8 @@ class FactorGraph:
             return self._update_n_sharded(n, t0, t1, itrs, use_inactive)
         st = self.state
         store = st.store
-        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        t0, t1, sel, ii_all, jj_all, groups = self._window(t0, t1,
+                                                           use_inactive)
         ii_t, jj_t = ii_all[:self.E], jj_all[:self.E]
         itgt, iwgt = self.target_inac[sel], self.weight_inac[sel]
         coords0 = projective.coords_grid(self.h, self.w, device=self.device)
@@ -296,8 +303,8 @@ class FactorGraph:
                 store.poses, store.disps, store.intrinsics,
                 torch.cat([self.target, itgt]),
                 weight_all * uw if uw is not None else weight_all,
-                0.2 * self.damping + EP_DAMP, ii_all, jj_all, t0, t1,
-                iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
+                0.2 * self.damping + EP_DAMP, ii_all, jj_all, groups, t0,
+                t1, iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
                 motion_only=motion_only, **ba_kw)
             store.poses.copy_(poses)
             store.disps.copy_(disps)
@@ -324,13 +331,10 @@ class FactorGraph:
         F = store.poses.shape[0]
         devs = self.mesh.devices
         E = self.E
-        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        t0, t1, sel, ii_all, jj_all, _ = self._window(t0, t1, use_inactive)
         ii_np, jj_np = ii_all.cpu().numpy(), jj_all.cpu().numpy()
-        # a group table that holds every edge of a source frame: the port's
-        # dba.ba drops none (the JAX graph's table keeps GROUP_DEGREE)
-        degree = max(GROUP_DEGREE, int(np.bincount(ii_np).max()))
         meta = sharded_dba.shard_edges_by_frame(ii_np, jj_np, len(devs), F,
-                                                degree)
+                                                GROUP_DEGREE)
         perm, ok = meta["perm"], meta["valid"]
         active = ok & (perm < E)
         n_inac = ii_np.shape[0] - E
@@ -396,7 +400,8 @@ class FactorGraph:
         path. With eps > 0 it stops once the mean flow residual |target -
         reprojection| over the active edges is below eps."""
         st = self.state
-        t0, t1, sel, ii_all, jj_all = self._window(t0, t1, use_inactive)
+        t0, t1, sel, ii_all, jj_all, groups = self._window(t0, t1,
+                                                           use_inactive)
         ii_t, jj_t = ii_all[:self.E], jj_all[:self.E]
         tgt, wgt = self._oracle_targets(ii_t, jj_t)
         self.target, self.weight = tgt, wgt
@@ -409,8 +414,8 @@ class FactorGraph:
                 coords1, _ = kstore.reproject(st.store, ii_t, jj_t)
                 if float(torch.linalg.norm(tgt - coords1, dim=-1).mean()) < eps:
                     break
-            kstore.ba(st.store, tgt_all, wgt_all, eta, ii_all, jj_all, t0, t1,
-                      iters=itrs, motion_only=motion_only,
+            kstore.ba(st.store, tgt_all, wgt_all, eta, ii_all, jj_all, groups,
+                      t0, t1, iters=itrs, motion_only=motion_only,
                       metric_depth_reg=st.metric_depth_reg,
                       uncertainty_aware=st.uncertainty_aware)
             n_done += 1
@@ -444,6 +449,8 @@ class FactorGraph:
         if t0 is None:
             t0 = 1
         ii_t, jj_t = _t(self.ii, self.device), _t(self.jj, self.device)
+        groups = dba.make_edge_groups(self.ii, st.store.poses.shape[0],
+                                      GROUP_DEGREE)
         ba_kw = dict(iters=itrs, lm=1e-5, ep=1e-2,
                      metric_depth_reg=st.metric_depth_reg,
                      uncertainty_aware=st.uncertainty_aware)
@@ -453,7 +460,7 @@ class FactorGraph:
             for _ in range(steps):
                 with TIMER.phase("track.lowmem.step", sync=True):
                     kstore.ba(st.store, self.target, self.weight, eta, ii_t,
-                              jj_t, t0, t1, **ba_kw)
+                              jj_t, groups, t0, t1, **ba_kw)
             return
 
         # edge rows of each chunk of source frames, ascending (over the
@@ -466,9 +473,11 @@ class FactorGraph:
         n_frames = max(t1, int(self.ii.max()) + 1, int(self.jj.max()) + 1)
         for _ in range(steps):
             with TIMER.phase("track.lowmem.step", sync=True):
-                self._lowmem_step(chunks, ii_t, jj_t, n_frames, t0, t1, ba_kw)
+                self._lowmem_step(chunks, ii_t, jj_t, groups, n_frames, t0,
+                                  t1, ba_kw)
 
-    def _lowmem_step(self, chunks, ii_t, jj_t, n_frames, t0, t1, ba_kw):
+    def _lowmem_step(self, chunks, ii_t, jj_t, groups, n_frames, t0, t1,
+                     ba_kw):
         """One step: the update operator over each chunk (alt_corr), then
         the full-window BA."""
         store = self.state.store
@@ -489,7 +498,8 @@ class FactorGraph:
             self.weight[sel] = weight
             self.damping[frames] = eta
         kstore.ba(store, self.target, self.weight,
-                  0.2 * self.damping + EP_DAMP, ii_t, jj_t, t0, t1, **ba_kw)
+                  0.2 * self.damping + EP_DAMP, ii_t, jj_t, groups, t0, t1,
+                  **ba_kw)
 
     def clear_edges(self):
         """Drop every live edge (and any volumes)."""

@@ -138,10 +138,11 @@ def distance(store: KeyframeStore, ii, jj, beta=0.3, bidirectional=True):
 
 
 @torch.no_grad()
-def ba(store: KeyframeStore, target, weight, eta, ii, jj, t0, t1, iters=2,
-       lm=1e-4, ep=0.1, motion_only=False, metric_depth_reg=True,
+def ba(store: KeyframeStore, target, weight, eta, ii, jj, groups, t0, t1,
+       iters=2, lm=1e-4, ep=0.1, motion_only=False, metric_depth_reg=True,
        uncertainty_aware=True, alpha=0.05) -> KeyframeStore:
-    """Uncertainty-weighted DBA over the store, in place."""
+    """Uncertainty-weighted DBA over the store, in place; `groups` is the
+    caller's ``dba.make_edge_groups`` table of ii."""
     if uncertainty_aware:
         weight = weight * store.uncertainties_inv[ii][..., None]
     sensor = sensor_valid = None
@@ -151,7 +152,8 @@ def ba(store: KeyframeStore, target, weight, eta, ii, jj, t0, t1, iters=2,
         sensor_valid = store.mono_mask_up[:, sh, sw]
     poses, disps = dba.ba(
         store.poses, store.disps, store.intrinsics, target, weight, eta, ii,
-        jj, t0, t1, iters=iters, cfg=dba.BAConfig(lm=lm, ep=ep, alpha=alpha),
+        jj, groups, t0, t1, iters=iters,
+        cfg=dba.BAConfig(lm=lm, ep=ep, alpha=alpha),
         sensor_disps=sensor, sensor_valid=sensor_valid,
         motion_only=motion_only)
     store.poses.copy_(poses)
@@ -298,6 +300,34 @@ def normalize(store: KeyframeStore, n_frames: int) -> KeyframeStore:
     store.disps[:n_frames] /= s
     store.poses[:n_frames, :3] *= s
     return store
+
+
+def backproject_pointcloud(store: KeyframeStore, index: int,
+                           up: bool = True):
+    """World-space point cloud of keyframe `index`'s depth (the role of
+    upstream's ``droid_backends.iproj``): points (H*W, 3) and a validity
+    mask (H*W,), at full resolution with `up`, else at 1/8."""
+    disps = store.disps_up[index] if up else store.disps[index]
+    fx, fy, cx, cy = store.intrinsics * (8.0 if up else 1.0)
+    H, W = disps.shape
+    grid = projective.coords_grid(H, W, disps.dtype, disps.device)
+    z = 1.0 / torch.clamp(disps, min=1e-8)
+    pts_cam = torch.stack([(grid[..., 0] - cx) / fx * z,
+                           (grid[..., 1] - cy) / fy * z, z], dim=-1)
+    c2w = lie.se3_inv(store.poses[index])
+    pts = lie.se3_act(c2w[None, None], pts_cam).reshape(-1, 3)
+    return pts, (disps > 1e-6).reshape(-1)
+
+
+def reprojection_map(store: KeyframeStore, ii, jj):
+    """Dense reprojection of frames ii into jj, with the inverse depth, and
+    its validity (the role of upstream's ``droid_backends.projmap``):
+    coords (N, h, w, 3), valid (N, h, w, 1)."""
+    dev = store.poses.device
+    return projective.projective_transform(
+        store.poses, store.disps, store.intrinsics,
+        torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev),
+        return_depth=True)
 
 
 def get_depth_and_pose(store: KeyframeStore, index: int,

@@ -398,8 +398,7 @@ class SLAM:
                         self.mapper.uncer_mlp.state_dict().items()},
                        os.path.join(self.save_dir,
                                     "uncertainty_mlp_weight.pth"))
-        with open(os.path.join(self.save_dir, "profile.txt"), "w") as f:
-            f.write(TIMER.report() + "\n")
+        TIMER.write(os.path.join(self.save_dir, "profile.txt"))
         if cfg.get("verbose", True):
             PRINTER.print("phase timings:\n" + TIMER.report(), FontColor.INFO)
         self.control.close()
