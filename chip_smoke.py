@@ -23,11 +23,12 @@ Phases, each printing its own lines:
      version's time and, where one exists, one library call's device time;
      K4's zero fill and its add apart;
   5. the mapper's keyframe path through Mapper's entry points
-     (initialize_mapper, then on_keyframe; 225 iterations per keyframe
-     after the init's 1,050, half the config's 450) at the full widths of
-     configs/Dynamic/TUM_RGBD/tum_dynamic.yaml on a seeded synthetic scene,
+     (initialize_mapper, then on_keyframe; 100 iterations per keyframe
+     after the init's 1,050, the config's 450 cut) at the full
+     widths of configs/Dynamic/TUM_RGBD/tum_dynamic.yaml on a seeded
+     synthetic scene,
      with the kernels' launch counts, which must equal the mapping steps run,
-     and a torch.profiler summary;
+     and a torch.profiler summary; then phase 13(a)'s kw A/B on its map;
   6. the tracking frontend at the same widths, frame by frame through
      MotionFilter.track and Frontend.__call__: an oracle run (ground-truth
      reprojection targets through the real BA) that hands its keyframes to
@@ -47,8 +48,9 @@ Phases, each printing its own lines:
      map refinement, the trajectory filler and the render-based pose
      refinement of every frame, fast_mode off); depth cut (printed). Gates:
      keyframe ATE < 1 cm and full ATE <= max(1.5 x its fast_mode value,
-     1 cm), both read back from the metrics files terminate wrote; the
-     refinement ran once per frame; the final map's keyframe PSNR >= 16 dB;
+     1 cm), both read back from the metrics files terminate wrote; loop
+     closure ran its BA at least once; the refinement ran once per frame;
+     the final map's keyframe PSNR >= 16 dB;
      K1-K4 each launched once per render_fused call on the path;
   8. the user's entry point. (a) The default priors at full width, built
      by make_prior_fns from seeded checkpoints in upstream names that the
@@ -71,7 +73,7 @@ Phases, each printing its own lines:
      with an empty checkpoint directory (its one fallback line: no metric
      depth, no uncertainty) and gui on, then SLAM.run() on 16 frames of
      phase 8's TUM sequence under the oracle. (b) SLAM.run() in memory in
-     the Splat-SLAM mode (metric_depth_reg off, uncertainty on) on 24
+     the Splat-SLAM mode (metric_depth_reg off, uncertainty on) on 16
      frames of the system phase's scene, the depth prior (d + 1) / 2 with
      a hole cut in it, the features of phase 8's seeded DINOv2; its oracle
      writes the converged state and moves every earlier keyframe by 1 mm
@@ -108,9 +110,9 @@ Phases, each printing its own lines:
      SH and pose_delta within tests/test_multichip.py's tolerances wherever
      no shard's tile list overflows (each shard's drops printed), ms per
      forward+backward, K1-K4 launched D times per render. (d) SLAM.run()
-     on 12 frames of phase 8's TUM sequence with the seeded DROID weights
+     on 8 frames of phase 8's TUM sequence with the seeded DROID weights
      (the frontend's updates through the edge-sharded step), with a 2-shard
-     mesh killed at 6 frames and resumed from its checkpoint, and without
+     mesh killed at 5 frames and resumed from its checkpoint, and without
      a mesh: the same keyframe count, final_gs.ply written, the loop-end
      differences printed beside tests/test_mesh_e2e.py's tolerances. (b)
      make_sharded_ba against dba.ba, with and without the sensor term,
@@ -121,8 +123,8 @@ Phases, each printing its own lines:
      ms per iteration and peak memory. (e)
      run.build(--mesh 2) raises make_mesh's message on one card;
   12. the measuring programs. (a) python -m wildgs_slam_tpu_torch.bench
-     as a user runs it (its last line must carry kernel_check "ok" and a
-     numeric bin_overflow), then bench.main in-process at ITERS=50 with the
+     as a user runs it, at BENCH_ITERS=100 (its last line must carry
+     kernel_check "ok" and a numeric bin_overflow), then bench.main in-process at ITERS=50 with the
      launch counters (K1-K4 each once per step run plus the gate's
      render), then
      K1-K4 against their plain versions and timed at the bench's table
@@ -132,10 +134,29 @@ Phases, each printing its own lines:
      profile_global_ba as subprocesses, at the cuts its `reduced` line
      prints. (c) Per phase, the BA group tables built, the largest
      source-frame degree and the edges past the 16th that the Schur terms
-     left out;
-  13. one JSON line describing every kernel (with its bench-shape numbers
+     left out (printed after phase 13, which it also counts);
+  13. the A/B programs and the tracker's microbenches through their
+     functions. (a) scripts/ab_bin_kw at full width (384x512, 8 keyframes,
+     capacity 131,072, lists of 512, K=32): the radius percentiles of the
+     densified map, renders at kw 4/3/2 and at 4/6 (each render's overflow
+     split into the window's truncation and full lists' drops, PSNR
+     against kw 4; K1 and K3 launched once per render), ms per iteration
+     at kw 4 and 3 (K1-K4 once per step), and K3's table and K1's colour
+     and depth at kw 2, 3 and 6 against their plain versions; and, run at
+     phase 5's end while its map is there, kw 6 against 4 on that map (the
+     room scene, whose kw 4 renders truncate): the middle view's overflow
+     split and PSNR against kw 4, every keyframe's PSNR against its image,
+     ms per iteration. (b)
+     scripts/ab_update_eps: SLAM.run() under the oracle at update_eps 0,
+     0.01 and 0.05 (keyframe ATE, BA steps run of those asked; gates: at
+     eps 0 every step asked runs and the ATE is under 1 cm; K1-K4 once per
+     render). (c) scripts/microbench_motion_filter and (d)
+     scripts/microbench_frontend at their defaults (384x512): ms per frame
+     and per update, the phase split, device ms and operations; they
+     launch none of K1-K4;
+  14. one JSON line describing every kernel (with its bench-shape numbers
      under "bench_shape");
-  14. the card again, then the last line {"ok": true, "device": {...}}.
+  15. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -152,6 +173,7 @@ script, run in turns in one call on one card.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -208,7 +230,7 @@ FWD_OPS_PER_ALIVE_PAIR = 15
 BWD_OPS_PER_ALIVE_PAIR = 55
 N_INIT_KEYFRAMES = 5     # keyframes at initialize_mapper
 N_ONLINE_KEYFRAMES = 3   # on_keyframe calls after it
-SLICE_MAPPING_ITERS = 225   # per on_keyframe call (450 in the config): depth
+SLICE_MAPPING_ITERS = 100   # per on_keyframe call (450 in the config): depth
                             # cut to keep the script in its time limit
 TOL = dict(color=1e-5, depth=1e-4, alpha=1e-5, tfin=1e-5, tentry=1e-5)
 BWD_MAX_REL = 1e-5
@@ -223,13 +245,19 @@ ATE_MAX = 0.01           # m, the bar of tests/test_integrated_ate.py
 PSNR_GAIN_MIN = 10.0     # dB, the handoff's mean keyframe PSNR must rise by
 PSNR_MIN = 35.0          # more than this, to above this
 ORACLE_FRAMES = 40       # frames each tracking run may take at most
-NETWORK_FRAMES = 400
-SYSTEM_FRAMES = 48       # frames of the system phase, every one a keyframe
+NETWORK_FRAMES = 240     # the seeded run reaches its 8th update at frame
+                         # 172, and the profiler window takes ~20 more
+SYSTEM_FRAMES = 48       # frames of the system phase, every one a keyframe;
+                         # the frontend calls loop_ba only past its window
+                         # (25 keyframes), so 48 give it 23 calls
 SYSTEM_STEP = TRACK_STEP / 2   # its motion per frame: frames 21 apart lie
                                # 18 px apart, under loop_thresh (25), so
                                # loop closure finds pairs and runs its BA
-SYSTEM_CUTS = {"init_itr_num": 150, "mapping_itr_num": 40,
-               "final_refine_iters": 300}   # depth only
+SYSTEM_CUTS = {"init_itr_num": 150, "mapping_itr_num": 20,
+               "final_refine_iters": 150}   # depth only
+REFINE_ITERS = 30        # pose_refine_iters of phases 7 and 8b (100 by
+                         # default): depth only; every frame there is a
+                         # keyframe, whose own pose wins over the refined one
 SYSTEM_PSNR_MIN = 16.0   # dB, the bar of tests/test_integrated_ate.py
 
 
@@ -857,6 +885,7 @@ def slice_phase(dev):
           json.dumps([round(x, 2) for x in psnr]))
     overflow_breakdown(mapper)
     profile_steps(mapper, 8)
+    add_launches(AB_LAUNCHES, slice_kw_check(mapper, frames))
     return launches
 
 
@@ -866,12 +895,13 @@ def slice_phase(dev):
 
 def profile_window(fn, label):
     """torch.profiler over fn(): wall and device time, device-busy share and
-    the top device operations."""
+    the top device operations. The device's activity alone: a window of
+    the network run holds ~320,000 device operations, and the host's
+    operations beside them would take longer to read than to run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1185,7 +1215,9 @@ def system_phase(dev):
     cfg["mapping"]["final_refine_iters"] = cuts["final_refine_iters"]
     tr_cfg.update(init_itr_num=cuts["init_itr_num"],
                   mapping_itr_num=cuts["mapping_itr_num"])
-    reduced["pose_refine_iters"] = f"{tr_cfg.get('pose_refine_iters', 100)} (not cut)"
+    reduced["pose_refine_iters"] = (f"{tr_cfg.get('pose_refine_iters', 100)}"
+                                    f" -> {REFINE_ITERS}")
+    tr_cfg["pose_refine_iters"] = REFINE_ITERS
     reduced["frames"] = (f"{n_frames} of the tracking scene (seed 3) at half "
                          f"its motion per frame ({SYSTEM_STEP} of the mapping "
                          f"scene's), every one a keyframe "
@@ -1300,6 +1332,9 @@ def system_phase(dev):
     print(f"system loop closure: {len(loops)} loop_ba calls, "
           f"{sum(n > 0 for n in loops)} ran their BA (edges "
           f"{min(loops, default=0)}-{max(loops, default=0)})")
+    if not any(n > 0 for n in loops):
+        raise AssertionError(f"loop closure ran no BA in {n_frames} frames "
+                             f"({len(loops)} loop_ba calls)")
     print(f"system: render_fused calls {renders}; launches "
           f"{json.dumps(launches)}")
 
@@ -1358,7 +1393,7 @@ PRIOR_FRAMES = 8         # 384x512 frames through each prior at full width
 ENTRY_FRAMES = 24        # frames of the TUM sequence written to disk
 ENTRY_KILL = 16          # invocation A's --max_frames; B resumes there
 ENTRY_CUTS = {"init_itr_num": 150, "mapping_itr_num": 40,
-              "final_refine_iters": 200}   # depth only
+              "final_refine_iters": 100}   # depth only
 FALLBACK_LINE = "mono priors unavailable"   # run.build's line without priors
 ALL_FILTERS = (0, 1, 2, 3, 4)   # PNG row filters: None, Sub, Up, Avg, Paeth
 
@@ -1617,6 +1652,7 @@ def entry_phase(dev, ckpt):
     reduced["frames"] = (f"{ENTRY_FRAMES}, every one a keyframe (as phase "
                          f"7); A --max_frames {ENTRY_KILL} --fast_mode "
                          f"--checkpoint_every 8, B --resume to the end")
+    reduced["pose_refine_iters"] = f"100 -> {REFINE_ITERS}"
     reduced["priors"] = ("features: the seeded DINOv2 of 8a through "
                          "make_prior_fns; depth: the scene's exact depth, "
                          "set on the motion filter after build() (a seeded "
@@ -1631,7 +1667,8 @@ def entry_phase(dev, ckpt):
             "mapping": {"final_refine_iters": ENTRY_CUTS[
                 "final_refine_iters"],
                 "Training": {k: ENTRY_CUTS[k] for k in (
-                    "init_itr_num", "mapping_itr_num")}}}
+                    "init_itr_num", "mapping_itr_num")}
+                | {"pose_refine_iters": REFINE_ITERS}}}
     cfg_path = os.path.join(ENTRY_DIR, "entry.yaml")
     with open(cfg_path, "w") as fh:
         json.dump(spec, fh)          # JSON is YAML
@@ -1716,7 +1753,7 @@ def entry_phase(dev, ckpt):
 
 NONMETRIC_DIR = os.path.join(HERE, "build", "chip_smoke", "nonmetric")
 NOPRIOR_FRAMES = 16      # 9a: --max_frames on the TUM sequence of phase 8
-SPLAT_FRAMES = 24        # 9b: frames of the system scene, in memory
+SPLAT_FRAMES = 16        # 9b: frames of the system scene, in memory
 PRIOR_SCALE, PRIOR_SHIFT = 2.0, -1.0   # 9b's prior is (depth + 1) / 2
 PRIOR_HOLE = (slice(100, 180), slice(150, 300))   # cut out of 9b's prior
 SHIFT_M = 1e-3           # 9b's oracle moves earlier keyframes by this
@@ -2360,8 +2397,8 @@ def jpeg_phase(dev, ckpt):
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = (2, 8)     # shards of the meshes, all on cuda:0
-MESH_FRAMES = 12         # (d): frames of phase 8's TUM sequence
-MESH_KILL = 6            # (d): leg A's --max_frames; B resumes there
+MESH_FRAMES = 8          # (d): frames of phase 8's TUM sequence
+MESH_KILL = 5            # (d): leg A's --max_frames; B resumes there
 MESH_BUFFER = 32         # (d): keyframe buffer (the config's 350)
 MESH_WARMUP = 4          # (d): keyframes before the frontend starts (12)
 MESH_CUTS = {"init_itr_num": 60, "mapping_itr_num": 20,
@@ -2805,6 +2842,8 @@ PIPELINE_ARGS = ["--frames", "12", "--mapping_iters", "10", "--init_iters",
                  "20", "--final_refine", "10"]
 MAP_OPT_ARGS = ["8", "6"]            # K iterations per segment, keyframes
 GLOBAL_BA_FRAMES = "8"
+BENCH_RUN_ITERS = "100"  # the subprocess bench's BENCH_ITERS (400 by
+                         # default): its passes are of 100 steps, depth only
 BENCH_GATE_ITERS = 50   # the in-process bench's ITERS (BENCH_ITERS): the
                         # launch gate needs no 400-step timing again
 PHASE = ["setup"]                    # the phase whose BA tables are tallied
@@ -2865,8 +2904,9 @@ def bench_check(dev):
     counters, then K1-K4 at its table's shape."""
     from wildgs_slam_tpu_torch import bench
 
-    last = json.loads(run_program("bench", "wildgs_slam_tpu_torch.bench",
-                                  []).strip().splitlines()[-1])
+    last = json.loads(run_program(
+        "bench", "wildgs_slam_tpu_torch.bench", [],
+        env={"BENCH_ITERS": BENCH_RUN_ITERS}).strip().splitlines()[-1])
     if last["kernel_check"] != "ok" or not isinstance(last["bin_overflow"],
                                                       int):
         raise AssertionError(f"bench: {last}")
@@ -2912,7 +2952,8 @@ def group_tally_report():
 
 
 def programs_phase(dev):
-    """Phase 12: the bench, the profile scripts, the BA tally."""
+    """Phase 12: the bench, the profile scripts (the BA tally of (c) is
+    printed after phase 13, with that phase's tables)."""
     from wildgs_slam_tpu_torch.scripts import (profile_pipeline,
                                                profile_rasterizer)
 
@@ -2920,7 +2961,9 @@ def programs_phase(dev):
           + " ".join(PIPELINE_ARGS) + " (depth only; 384x512, capacity "
           "131072 as the script's defaults); profile_map_opt K="
           f"{MAP_OPT_ARGS[0]} n_kf={MAP_OPT_ARGS[1]}; profile_global_ba "
-          f"GB_FRAMES={GLOBAL_BA_FRAMES}; profile_rasterizer 10 steps")
+          f"GB_FRAMES={GLOBAL_BA_FRAMES}; profile_rasterizer 10 steps; the "
+          f"bench's subprocess BENCH_ITERS={BENCH_RUN_ITERS} (400): its "
+          f"rays/s are of passes of {BENCH_RUN_ITERS} steps")
     t_0 = time.perf_counter()
     last, launches, bench_rows = bench_check(dev)
     print(f"phase 12 (a): {time.perf_counter() - t_0:.1f} s")
@@ -2951,8 +2994,221 @@ def programs_phase(dev):
                 "wildgs_slam_tpu_torch.scripts.profile_global_ba", [],
                 env={"GB_FRAMES": GLOBAL_BA_FRAMES})
     print(f"phase 12 (b): {time.perf_counter() - t_b:.1f} s")
-    group_tally_report()
     return last, launches, bench_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the A/B programs (scripts/ab_bin_kw, ab_update_eps) and the
+# tracker's microbenches (scripts/microbench_motion_filter,
+# microbench_frontend)
+# ---------------------------------------------------------------------------
+
+AB_KW_ITERS = 32     # ab_bin_kw's K (64 in the script): depth cut
+AB_KW_REPS = 1       # timed segments per kw after the warm one (3 in the
+                     # script): depth cut to keep the script in its limit
+AB_KW_SETS = ((4, 3, 2), (4, 6))   # the script's A/B, then kw 6 against 4
+PARITY_KWS = (2, 3, 6)             # K1/K3 against their plain versions
+SLICE_KW_ITERS = 32  # iterations per timed segment on phase 5's map
+FRONTEND_ARGS = ["--reps", "3"]    # 5 in the script: depth cut
+AB_LAUNCHES = {}     # K1-K4 launches of phase 13 and of phase 5's kw A/B
+
+
+def gate_into(total, label, renders, forward_only=0):
+    """launch_gate on the launches since reset_launches(), added to
+    total."""
+    launches = read_launches()
+    launch_gate(label, launches, renders, forward_only)
+    add_launches(total, launches)
+
+
+def add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+@torch.no_grad()
+def kw_parity(abk, mapper, kw, dev):
+    """K3's table and K1's colour and depth at bin_kw kw on the A/B view,
+    against their plain versions."""
+    *args, alive = abk.view_inputs(mapper)
+    h, w = mapper.image_size
+    proj = tr.project_gaussians(*args, (h, w))
+    bins = tr.bin_gaussians(proj.mean2d, proj.radius, proj.depth,
+                            proj.valid & alive, (h, w),
+                            capacity=mapper.render_list_capacity, kw=kw)
+    attrs = tr.pack_attrs(proj.mean2d, proj).contiguous()
+    ids = bins.ids.to(torch.int32).contiguous()
+    table = tg.table_gather(attrs, ids)
+    plain_table = tg.table_gather_plain(attrs, ids)
+    if not torch.equal(table, plain_table):
+        raise AssertionError(f"K3 at kw {kw} differs from its plain version")
+    tid = torch.arange(ids.shape[0], dtype=torch.int32, device=dev)
+    bg = torch.zeros(3, device=dev)
+    fargs = (bins.counts, tid, plain_table, bg, -(-w // 16), 64)
+    k_out = cc.composite_fwd(*fargs)
+    p_out = cc.composite_fwd_plain(*fargs)
+    err = {name: float((a - b).abs().max())
+           for name, a, b in zip(TOL, k_out, p_out)}
+    print(f"phase 13(a) kw={kw}: K3 table equal to its plain version "
+          f"({ids.shape[0]} tiles x {ids.shape[1]} slots, longest list "
+          f"{int(bins.counts.max())}); K1 max-abs err vs plain "
+          + json.dumps(err))
+    if not all(err[k] <= TOL[k] for k in err):
+        raise AssertionError(f"K1 at kw {kw} disagrees: {err} (tolerances "
+                             f"{TOL})")
+
+
+def kw_check(dev):
+    """(a) ab_bin_kw at full width: the densified scene, its radii, the
+    renders at kw 4/3/2 and 4/6 (K1/K3 once per render), ms per iteration
+    at kw 4 and 3, and K1/K3 at kw 2, 3 and 6 against their plain
+    versions."""
+    from wildgs_slam_tpu_torch.scripts import ab_bin_kw as abk
+
+    total = {}
+    reset_launches()
+    mapper = abk.build_scene(AB_KW_ITERS, dev)
+    gate_into(total, "phase 13(a) build_scene", mapper.fused_renders)
+    rad = abk.radius_stats(mapper)
+    print(f"phase 13(a) alive {gm.num_alive(mapper.gaussians)}; radius px "
+          f"of the {rad['n']} valid, alive Gaussians: p50={rad['p50']:.1f} "
+          f"p95={rad['p95']:.1f} p99={rad['p99']:.1f} "
+          f"p99.9={rad['p99.9']:.1f} max={rad['max']}")
+    for kws in AB_KW_SETS:
+        reset_launches()
+        res, _ = abk.render_ab(mapper, kws)
+        gate_into(total, f"phase 13(a) render_ab{kws}", len(kws), len(kws))
+        abk.print_ab(res)
+    for kw in (4, 3):
+        before = mapper.fused_renders
+        reset_launches()
+        ms = abk.time_segment(mapper, kw, AB_KW_ITERS, AB_KW_REPS)
+        gate_into(total, f"phase 13(a) segments at kw {kw}",
+                  mapper.fused_renders - before)
+        print(f"phase 13(a) opt segment kw={kw}: {ms:.2f} ms/iter (best "
+              f"of {AB_KW_REPS} segments of {AB_KW_ITERS} after a warm one)")
+    mapper.bin_kw = 4
+    for kw in PARITY_KWS:
+        kw_parity(abk, mapper, kw, dev)
+    del mapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def slice_kw_check(mapper, frames):
+    """Phase 13(a)'s kw A/B on phase 5's map (the room scene, whose kw 4
+    renders truncate tens of thousands of entries), run at phase 5's end:
+    kw 6 against kw 4 on its middle view, every keyframe's PSNR against its
+    image at both, and ms per iteration at both."""
+    from wildgs_slam_tpu_torch.scripts import ab_bin_kw as abk
+
+    total = {}
+    reset_launches()
+    res, _ = abk.render_ab(mapper, (4, 6))
+    gate_into(total, "slice kw 6 vs 4, render_ab(4, 6)", 2, 2)
+    print("slice kw 6 vs 4 (phase 13(a) on this map), middle view:")
+    abk.print_ab(res)
+    psnr = {}
+    for kw in (4, 6):
+        reset_launches()
+        psnr[kw] = keyframe_psnr(mapper, frames, functools.partial(
+            tr.render_fused, bin_kw=kw))
+        gate_into(total, f"slice kw 6 vs 4, keyframe renders at "
+                  f"kw {kw}", len(frames), len(frames))
+    print(f"slice kw 6 vs 4: keyframe PSNR [dB] at kw 4 "
+          f"{json.dumps([round(x, 3) for x in psnr[4]])} (mean "
+          f"{np.mean(psnr[4]):.3f}), at kw 6 "
+          f"{json.dumps([round(x, 3) for x in psnr[6]])} (mean "
+          f"{np.mean(psnr[6]):.3f})")
+    for kw in (4, 6):
+        before = mapper.fused_renders
+        mapper.overflow_events = mapper.max_overflow = 0
+        reset_launches()
+        ms = abk.time_segment(mapper, kw, SLICE_KW_ITERS, 1)
+        gate_into(total, f"slice kw 6 vs 4, segments at kw {kw}",
+                  mapper.fused_renders - before)
+        print(f"slice kw 6 vs 4, opt segment kw={kw}: {ms:.2f} "
+              f"ms/iter (one segment of {SLICE_KW_ITERS} after a warm one; "
+              f"{mapper.overflow_events} of the 2 segments overflowed, at "
+              f"most {mapper.max_overflow} entries dropped in one step)")
+    return total
+
+
+def eps_check(dev):
+    """(b) ab_update_eps on the card: keyframe ATE and BA steps run at each
+    eps; at eps 0 every step asked runs and the ATE is under 1 cm."""
+    from wildgs_slam_tpu_torch.scripts import ab_update_eps as abe
+
+    base = os.path.join(PROGRAM_DIR, "ab_update_eps")
+    shutil.rmtree(base, ignore_errors=True)
+    total, res = {}, {}
+    for eps in abe.EPS:
+        reset_launches()
+        r = abe.run_once(eps, os.path.join(base, "tum"),
+                         os.path.join(base, "out"), dev)
+        gate_into(total, f"phase 13(b) eps={eps}", r["renders"],
+                  r["forward_only"])
+        res[eps] = r
+    for eps, r in res.items():
+        abe.report(eps, r)
+    r0 = res[0.0]
+    if r0["steps"] != r0["asked"]:
+        raise AssertionError(f"eps 0 ran {r0['steps']} BA steps of "
+                             f"{r0['asked']} asked")
+    if not r0["rmse"] < ATE_MAX:
+        raise AssertionError(f"eps 0: keyframe ATE {r0['rmse']} m >= "
+                             f"{ATE_MAX}")
+    return total
+
+
+def ab_phase(dev):
+    """Phase 13: the four programs through their functions on the card;
+    their launches go to AB_LAUNCHES, beside phase 5's kw A/B."""
+    from wildgs_slam_tpu_torch.scripts import (microbench_frontend,
+                                               microbench_motion_filter)
+
+    print(f"reduced (phase 13): ab_bin_kw K={AB_KW_ITERS} (64 in the script), "
+          f"best of {AB_KW_REPS} timed segment (3 in the script); "
+          f"microbench_frontend {' '.join(FRONTEND_ARGS)} (5 in the "
+          f"script); ab_update_eps and microbench_motion_filter at their "
+          f"defaults; phase 5's map timed over one segment of "
+          f"{SLICE_KW_ITERS} per kw")
+    t_0 = time.perf_counter()
+    total = AB_LAUNCHES
+    add_launches(total, kw_check(dev))
+    t_1 = time.perf_counter()
+    print(f"phase 13 (a): {t_1 - t_0:.1f} s")
+    add_launches(total, eps_check(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_2 = time.perf_counter()
+    print(f"phase 13 (b): {t_2 - t_1:.1f} s")
+    reset_launches()
+    mf = microbench_motion_filter.main([])
+    fe = microbench_frontend.main(FRONTEND_ARGS)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the tracker's microbenches launched K1-K4: "
+                             f"{launches}")
+    for label, out, unit in (("motion filter", mf, "frame"),
+                             ("frontend update", fe, "update")):
+        p = out["profile"]
+        dev_s = ("device not measured" if p["device_ms"] is None else
+                 f"device {p['device_ms']:.2f} ms per {unit} (busy "
+                 f"{p['busy_ms']:.2f} of {p['wall_ms']:.2f} ms wall, "
+                 f"{p['busy_ms'] / p['wall_ms'] * 100:.1f}%), "
+                 f"{p['device_ops']:.0f} device operations per {unit}")
+        wall = {k: v for k, v in out.items() if k.endswith("_ms")}
+        print(f"phase 13 {label}: ms {json.dumps(wall)}; {dev_s}")
+    print(f"phase 13 (c, d): {time.perf_counter() - t_2:.1f} s")
+
+
+def phase_seconds(label, t0):
+    """Print the seconds since t0 as phase `label`'s; return now."""
+    t = time.perf_counter()
+    print(f"phase {label}: {t - t0:.1f} s")
+    return t
 
 
 def main():
@@ -2985,26 +3241,33 @@ def main():
             log, ("composite_fwd_kernel", "table_scatter_add_kernel")).items():
         print(f"ptxas {entry}: {used}")
 
+    t_phase = time.perf_counter()
     rows = kernel_phase(dev)
     if KERNELS_FROM:
         print(json.dumps({"kernels_from": KERNELS_FROM, "ms": {
             r["name"]: r["ms"] for r in rows}}))
         return
     small_render_check(dev)
+    t_phase = phase_seconds("3-4", t_phase)
     count_group_tables()
     launches = slice_phase(dev)
+    t_phase = phase_seconds("5", t_phase)
     PHASE[0] = "6"
     track_launches = tracking_phase(dev)
+    t_phase = phase_seconds("6", t_phase)
     PHASE[0] = "7"
     system_launches = system_phase(dev)
+    t_phase = phase_seconds("7", t_phase)
     PHASE[0] = "8-10"
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = priors_phase(dev)
     entry_launches = entry_phase(dev, ckpt)
+    t_phase = phase_seconds("8", t_phase)
     gc.collect()
     torch.cuda.empty_cache()
     nonmetric_launches = nonmetric_phase(dev, ckpt)
+    phase_seconds("9", t_phase)
     gc.collect()
     torch.cuda.empty_cache()
     t_jpeg = time.perf_counter()
@@ -3022,6 +3285,13 @@ def main():
     PHASE[0] = "12"
     bench_last, bench_launches, bench_rows = programs_phase(dev)
     print(f"phase 12: {time.perf_counter() - t_prog:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ab = time.perf_counter()
+    PHASE[0] = "13"
+    ab_phase(dev)
+    print(f"phase 13: {time.perf_counter() - t_ab:.1f} s")
+    group_tally_report()
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -3032,7 +3302,8 @@ def main():
             "nonmetric": nonmetric_launches[row["name"]],
             "jpeg": jpeg_launches[row["name"]],
             "mesh": mesh_launches[row["name"]],
-            "bench": bench_launches[row["name"]]}
+            "bench": bench_launches[row["name"]],
+            "ab": AB_LAUNCHES[row["name"]]}
         b = bench_rows[row["name"]]
         row["bench_shape"] = {k: b[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -58,6 +58,8 @@ torch.set_num_threads(1)
 HT, WD = 48, 64
 ATOL = 1e-4
 RTOL = 1e-4
+ORACLE_EPS = 0.008  # px: between the mean residual after the oracle
+                    # update_n's first step (0.011) and its second (0.004)
 
 
 @pytest.fixture(scope="module")
@@ -294,9 +296,12 @@ def test_update_bf16_volumes(cfg, nets):
     close(tg.net, np.asarray(jg.net)[:E], 2e-3, 0)
 
 
-def test_oracle_update_n(cfg, nets):
+@pytest.mark.parametrize("eps", [0.0, ORACLE_EPS])
+def test_oracle_update_n(cfg, nets, eps):
     """gt_injection: ground-truth targets, the real BA. Both packages move
-    the poses to the ground truth the same way."""
+    the poses to the ground truth the same way; with an early exit (eps >
+    0: stop once the mean residual |target - reprojection| is below eps)
+    both stop after the same step and age the edges by the steps run."""
     params, model = nets
     c = copy.deepcopy(cfg)
     js, ts = track_both(c, nets, 6, thresh=-1.0)
@@ -316,13 +321,16 @@ def test_oracle_update_n(cfg, nets):
         jnp.asarray(gt), jnp.full(store.disps.shape, 0.5))
     tg.gt_injection = lambda store, counter: (
         torch.from_numpy(gt), torch.full(store.disps.shape, 0.5))
+    done = []
     for g in (jg, tg):
         g.add_neighborhood_factors(0, 6, r=3)
-        g.update_n(4, 1, use_inactive=True)
+        done.append(int(g.update_n(4, 1, use_inactive=True, eps=eps)[0]))
+    assert done[1] == done[0] == (4 if eps == 0 else 2)
     close(ts.store.poses, js.store.poses, 1e-5, 0)
     close(ts.store.disps, js.store.disps)
     close(ts.store.disps_up[:6], js.store.disps_up[:6])
     np.testing.assert_array_equal(tg.age, jg.age)
+    assert int(tg.age.max()) == done[0]       # aged by the steps run
     # the ground-truth targets pull the poses towards the ground truth
     # (frame 0 is the gauge; the LM damping of a 6x8 image slows the steps)
     err = np.abs(ts.store.poses[:6, :3].numpy() - gt[:6, :3]).max()

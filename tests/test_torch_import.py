@@ -48,7 +48,9 @@ def _imports(path: pathlib.Path):
 
 
 SCRIPTS = ("profile_rasterizer", "profile_mapping_raster", "profile_map_opt",
-           "profile_global_ba", "profile_pipeline", "summarize_pose_eval")
+           "profile_global_ba", "profile_pipeline", "summarize_pose_eval",
+           "ab_bin_kw", "ab_update_eps", "microbench_motion_filter",
+           "microbench_frontend")
 SWEEPS = ("run_tum_dynamic_all.sh", "run_bonn_all.sh",
           "run_wild_slam_mocap_all.sh")
 
@@ -109,3 +111,14 @@ def test_sweeps_run_the_port():
         for line in text.splitlines():
             code = line.split("#", 1)[0]
             assert "run.py" not in code and "scripts/" not in code, line
+
+
+def test_port_sources_import_nothing_of_tests():
+    """The port keeps its own copies of what the JAX tests' helpers do
+    (e.g. the oracle scene of ``scripts/ab_update_eps.py``)."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        bad = [m for m in _imports(path)
+               if m.split(".")[0] in ("tests", "conftest")
+               or m.startswith("test_")]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

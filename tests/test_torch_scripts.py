@@ -240,7 +240,9 @@ def test_profile_pipeline_on_cpu(tmp_path):
 
 
 def test_profile_scripts_stop_without_a_card():
-    for mod in ("profile_rasterizer", "profile_pipeline"):
+    for mod in ("profile_rasterizer", "profile_pipeline", "ab_bin_kw",
+                "ab_update_eps", "microbench_motion_filter",
+                "microbench_frontend"):
         out = subprocess.run(
             [sys.executable, "-m", f"wildgs_slam_tpu_torch.scripts.{mod}"],
             cwd=ROOT, capture_output=True, text=True, timeout=300,

@@ -7,7 +7,12 @@ sweeps from the repository root):
 - ``profile_map_opt``: the mapper's optimisation segment;
 - ``profile_global_ba``: ``Backend.dense_ba`` on a synthetic store;
 - ``profile_pipeline``: ``SLAM.run()`` on a synthetic TUM scene;
-- ``summarize_pose_eval``: the per-scene ATE of a sweep as a CSV.
+- ``summarize_pose_eval``: the per-scene ATE of a sweep as a CSV;
+- ``ab_bin_kw``: the binning window (``bin_kw``) A/B on a densified map;
+- ``ab_update_eps``: the frontend's early exit (``update_eps``) A/B under
+  the oracle;
+- ``microbench_motion_filter``: ``MotionFilter.track`` per frame;
+- ``microbench_frontend``: one warm ``FactorGraph.update``.
 
 Each runs on the card, and stops without one unless ``--device cpu`` is
 given.

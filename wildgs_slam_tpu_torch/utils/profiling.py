@@ -190,7 +190,7 @@ def profile_steps(fn, steps: int, outdir: Optional[str] = None,
     device operations by their own time (on the CPU: the top CPU
     operations, the device's numbers not measured). With `outdir`, the
     Chrome trace goes to outdir/trace.json. Returns {wall_ms, device_ms,
-    busy_ms} per step (the device's None on the CPU)."""
+    busy_ms, device_ops} per step (the device's None on the CPU)."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -204,7 +204,8 @@ def profile_steps(fn, steps: int, outdir: Optional[str] = None,
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
-    out = {"wall_ms": wall / steps * 1e3, "device_ms": None, "busy_ms": None}
+    out = {"wall_ms": wall / steps * 1e3, "device_ms": None, "busy_ms": None,
+           "device_ops": None}
     if not cuda:
         print(f"profile: {steps} steps, wall {out['wall_ms']:.3f} ms/step; "
               "device time not measured (CPU)")
@@ -212,11 +213,17 @@ def profile_steps(fn, steps: int, outdir: Optional[str] = None,
                                         row_limit=top))
         return out
     busy, total, n_ops, by_name = device_summary(prof)
-    out.update(device_ms=total / 1e3 / steps, busy_ms=busy / 1e3 / steps)
+    if not n_ops:
+        print(f"profile: {steps} steps, wall {out['wall_ms']:.3f} ms/step; "
+              "torch.profiler recorded no device operation: device time "
+              "not measured")
+        return out
+    out.update(device_ms=total / 1e3 / steps, busy_ms=busy / 1e3 / steps,
+               device_ops=n_ops / steps)
     print(f"profile: {steps} steps, wall {out['wall_ms']:.3f} ms/step, "
           f"device {out['device_ms']:.3f} ms/step, busy "
           f"{busy / 1e6 / wall * 100:.1f}% of the wall time, "
-          f"{n_ops / steps:.0f} device operations per step")
+          f"{out['device_ops']:.0f} device operations per step")
     print(f"{'device op':<72} {'ms/step':>9} {'n/step':>7} {'%':>6}")
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
