@@ -1,0 +1,9 @@
+"""Share of the profiled stretch's wall time in which no operation ran on
+the device."""
+
+
+def read(ctx):
+    st = ctx.get("stretch")
+    if not st or not st["n_ops"] or not st["wall_s"]:
+        return None
+    return (1.0 - st["busy_s"] / st["wall_s"]) * 100.0
