@@ -1133,15 +1133,16 @@ def tracking_phase(dev):
 
 
 def lowmem_steps(label):
-    """ms per update_lowmem step from the TIMER's track.lowmem.step phase
-    (each step ends in a device sync)."""
-    st = TIMER.stats.get("track.lowmem.step")
-    if st is None or st.count == 0:
+    """ms per update_lowmem step from the TIMER's device-marked
+    track.lowmem.step phase: its device time, and its host time beside."""
+    st = TIMER.summary().get("track.lowmem.step")
+    if st is None or st["count"] == 0:
         raise AssertionError(f"{label}: no update_lowmem step ran")
-    print(f"{label}: {st.count} update_lowmem steps, {st.total / st.count * 1e3:.1f}"
-          f" ms per step (first {st.first * 1e3:.1f}, warm mean "
-          f"{st.warm_mean * 1e3:.1f}, min {st.min * 1e3:.1f}, max "
-          f"{st.max * 1e3:.1f})")
+    print(f"{label}: {st['count']} update_lowmem steps, "
+          f"{st['device_s'] / st['count'] * 1e3:.1f} ms per step on the "
+          f"device ({st['total_s'] / st['count'] * 1e3:.1f} on the host; "
+          f"first {st['first_s'] * 1e3:.1f}, warm mean "
+          f"{st['warm_mean_ms']:.1f})")
 
 
 def network_dense_ba(rec, model, cfg, dev):
@@ -2685,13 +2686,13 @@ def mesh_slam_run(cfg, dev, mesh, label, resume=None, terminate=True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = TIMER.stats["data.load"].count
-    upd = TIMER.stats.get("track.frontend")
+    upd = TIMER.summary().get("track.frontend")
     term_s = (f"terminate {wall - end['t'] + t0:.2f} s" if terminate
               else "no terminate")
     print(f"{label}: {n} frames -> {slam.state.counter} keyframes; loop "
           f"{(end['t'] - t0) / n * 1e3:.1f} ms per frame, {term_s}"
-          f"; track.frontend {upd.total / max(upd.count, 1) * 1e3:.1f} ms "
-          f"per frame; sharded update_n built "
+          f"; track.frontend {upd['device_s'] / max(upd['count'], 1) * 1e3:.1f}"
+          f" ms per frame on the device; sharded update_n built "
           f"{len(slam.frontend.graph._sharded_steps)} step function(s)")
     return slam, end, wall
 

@@ -2,7 +2,7 @@
 
 - ``PhaseTimer.add`` / ``summary`` / ``write`` / ``report`` equal to the JAX
   ``PhaseTimer``'s on the same ``add`` calls (the same floats, the same
-  file).
+  columns), beside the port's own self time and device columns.
 - ``keyframe_store.backproject_pointcloud`` and ``reprojection_map``
   against the JAX functions on a seeded store, within 1e-5 abs + 1e-5 rel
   (float32 elementwise math in both).
@@ -21,6 +21,7 @@ import copy
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -49,22 +50,38 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _cells(report):
+    """The report's rows below its rule, split into their cells."""
+    return [re.split(r"\s{2,}", line.strip())
+            for line in report.splitlines()[2:]]
+
+
 def test_phase_timer_matches_jax(tmp_path):
+    """The JAX timer's keys and columns, the same values; the port adds
+    ``self_s`` (the whole call: `add` records no children) and the
+    self and device columns."""
     calls = [("a", 1.5), ("b", 0.25), ("a", 0.125), ("a", 0.5), ("c", 3.0),
              ("b", 0.75)] + [("d", 0.001 * k) for k in range(70)]
     jt, tt = JTimer(), TTimer()
     for name, dt in calls:
         jt.add(name, dt)
         tt.add(name, dt)
-    assert tt.summary() == jt.summary()
-    assert set(tt.summary()["a"]) == {"count", "first_s", "warm_mean_ms",
-                                      "total_s"}
-    assert tt.summary()["a"]["count"] == 3
-    assert tt.report() == jt.report()
+    js, ts = jt.summary(), tt.summary()
+    assert set(ts) == set(js)
+    for name in js:
+        assert {k: v for k, v in ts[name].items() if k != "self_s"} == js[
+            name]
+        assert ts[name]["self_s"] == ts[name]["total_s"]
+    assert set(ts["a"]) == {"count", "first_s", "warm_mean_ms", "total_s",
+                            "self_s"}
+    assert ts["a"]["count"] == 3
+    jrows, trows = _cells(jt.report()), _cells(tt.report())
+    assert [r[:6] for r in trows] == jrows
+    assert all(r[6] == r[5] and r[7] == "-" for r in trows)
     jt.write(str(tmp_path / "j.txt"))
     tt.write(str(tmp_path / "t.txt"))
-    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt"
-                                                 ).read_bytes()
+    assert _cells((tmp_path / "t.txt").read_text()) == trows
+    assert _cells((tmp_path / "j.txt").read_text()) == jrows
     assert (tmp_path / "t.txt").read_text().endswith("\n")
 
 
@@ -232,7 +249,7 @@ def test_profile_pipeline_on_cpu(tmp_path):
     phases = [k for k in on_disk if k != "_meta"]
     assert any(k.startswith("map.") for k in phases)
     assert any(k.startswith("track.") for k in phases)
-    assert {"count", "first_s", "warm_mean_ms", "total_s"} == set(
+    assert {"count", "first_s", "warm_mean_ms", "total_s", "self_s"} == set(
         on_disk["map.initialize"])
     meta = on_disk["_meta"]
     assert meta["frames"] == 10 and meta["device"] == "cpu"

@@ -86,7 +86,7 @@ def render(means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
         color=untile(tc, image_size), depth=untile(td, image_size),
         alpha=untile(ta, image_size), n_touched=n_touched,
         radii=torch.where(valid, proj.radius, torch.zeros_like(proj.radius)),
-        overflow=bins.overflow)
+        overflow=bins.overflow, tile_counts=bins.counts)
 
 
 def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
@@ -115,7 +115,7 @@ def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
         n_touched=torch.zeros(means3d.shape[0], dtype=torch.int32,
                               device=means3d.device),
         radii=torch.where(valid, proj.radius, torch.zeros_like(proj.radius)),
-        overflow=bins.overflow)
+        overflow=bins.overflow, tile_counts=bins.counts)
 
 
 def render_reference(means3d, scales, rotations, opacities, sh_coeffs, w2c,

@@ -15,7 +15,7 @@ the last committed transmittance.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +32,8 @@ class RenderOutput(NamedTuple):
     n_touched: torch.Tensor  # (N,) int32 contributing-pixel counts
     radii: torch.Tensor      # (N,) int32 screen radii (0 = culled)
     overflow: torch.Tensor   # () dropped tile-list entries
+    tile_counts: Optional[torch.Tensor] = None   # (T,) live entries per
+                                                 # tile, where binned
 
 
 def tile_pixel_coords(tile_ids: torch.Tensor, tw: int):

@@ -265,7 +265,11 @@ class FactorGraph:
         """Up to `n` graph updates, stopping once the mean |delta| of an
         iteration is at most `eps` (0: always n). The edges age by `n`
         whatever ran. Returns (iterations run, mean |delta| of the last
-        one)."""
+        one). Each iteration of the single-device path adds to the counters
+        ``track.update_iters`` and ``track.edges`` (its active edges) and
+        runs three device-marked spans: ``track.upd.corr`` (reprojection,
+        motion features, correlation lookup), ``track.upd.operator`` (the
+        update operator) and ``track.upd.ba`` (the BA and its copies)."""
         if self.E == 0:
             return None
         if self.gt_injection is not None:
@@ -286,28 +290,33 @@ class FactorGraph:
         corr_vol = self.corr[:self.E]
         n_done, dmean = 0, torch.zeros((), device=self.device)
         for _ in range(n):
-            coords1, _ = projective.projective_transform(
-                store.poses, store.disps, store.intrinsics, ii_t, jj_t)
-            motn = torch.clamp(torch.cat([coords1 - coords0,
-                                          self.target - coords1], dim=-1),
-                               -64.0, 64.0)
-            corr = correlation.corr_lookup_packed(corr_vol, coords1)
-            net, delta, weight, frames, eta, upmask = self.model.update(
-                self.net, self.inp, corr, motn, ii_t)
-            self.net, self.weight = net, weight
-            self.target = coords1 + delta
-            dmean = torch.linalg.norm(delta, dim=-1).mean()
-            self.damping[frames] = eta
-            weight_all = torch.cat([weight, iwgt])
-            poses, disps = dba.ba(
-                store.poses, store.disps, store.intrinsics,
-                torch.cat([self.target, itgt]),
-                weight_all * uw if uw is not None else weight_all,
-                0.2 * self.damping + EP_DAMP, ii_all, jj_all, groups, t0,
-                t1, iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
-                motion_only=motion_only, **ba_kw)
-            store.poses.copy_(poses)
-            store.disps.copy_(disps)
+            TIMER.count("track.update_iters")
+            TIMER.count("track.edges", self.E)
+            with TIMER.phase("track.upd.corr", device=self.device):
+                coords1, _ = projective.projective_transform(
+                    store.poses, store.disps, store.intrinsics, ii_t, jj_t)
+                motn = torch.clamp(torch.cat([coords1 - coords0,
+                                              self.target - coords1], dim=-1),
+                                   -64.0, 64.0)
+                corr = correlation.corr_lookup_packed(corr_vol, coords1)
+            with TIMER.phase("track.upd.operator", device=self.device):
+                net, delta, weight, frames, eta, upmask = self.model.update(
+                    self.net, self.inp, corr, motn, ii_t)
+                self.net, self.weight = net, weight
+                self.target = coords1 + delta
+                dmean = torch.linalg.norm(delta, dim=-1).mean()
+                self.damping[frames] = eta
+            with TIMER.phase("track.upd.ba", device=self.device):
+                weight_all = torch.cat([weight, iwgt])
+                poses, disps = dba.ba(
+                    store.poses, store.disps, store.intrinsics,
+                    torch.cat([self.target, itgt]),
+                    weight_all * uw if uw is not None else weight_all,
+                    0.2 * self.damping + EP_DAMP, ii_all, jj_all, groups, t0,
+                    t1, iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
+                    motion_only=motion_only, **ba_kw)
+                store.poses.copy_(poses)
+                store.disps.copy_(disps)
             n_done += 1
             if eps > 0 and float(dmean) <= eps:
                 break
@@ -458,7 +467,7 @@ class FactorGraph:
             self.target, self.weight = self._oracle_targets(ii_t, jj_t)
             eta = 0.2 * self.damping + EP_DAMP
             for _ in range(steps):
-                with TIMER.phase("track.lowmem.step", sync=True):
+                with TIMER.phase("track.lowmem.step", device=self.device):
                     kstore.ba(st.store, self.target, self.weight, eta, ii_t,
                               jj_t, groups, t0, t1, **ba_kw)
             return
@@ -472,7 +481,7 @@ class FactorGraph:
                 chunks.append(_t(sel, self.device))
         n_frames = max(t1, int(self.ii.max()) + 1, int(self.jj.max()) + 1)
         for _ in range(steps):
-            with TIMER.phase("track.lowmem.step", sync=True):
+            with TIMER.phase("track.lowmem.step", device=self.device):
                 self._lowmem_step(chunks, ii_t, jj_t, groups, n_frames, t0,
                                   t1, ba_kw)
 

@@ -92,7 +92,7 @@ class Frontend:
 
     def _update_depth_masks(self, frames=None):
         """`frames`: the window BA touched (default: every live frame)."""
-        with TIMER.phase("track.fe.depth_masks"):
+        with TIMER.phase("track.fe.depth_masks", device=self.graph.device):
             kstore.update_valid_depth_mask(
                 self.state.store, self.state.counter, self.multiview_thresh,
                 self.multiview_visible_num, frames=frames)
@@ -102,9 +102,9 @@ class Frontend:
         self.n_updates += 1
         g = self.graph
         if g.corr is not None:
-            with TIMER.phase("track.fe.rm_factors"):
+            with TIMER.phase("track.fe.rm_factors", device=g.device):
                 g.rm_factors(g.age > self.max_age, store=True)
-        with TIMER.phase("track.fe.add_proximity"):
+        with TIMER.phase("track.fe.add_proximity", device=g.device):
             g.add_proximity_factors(
                 self.t1 - 5, max(self.t1 - self.frontend_window, 0),
                 rad=self.frontend_radius, nms=self.frontend_nms,
@@ -116,18 +116,18 @@ class Frontend:
                            and self.state.metric_depth_reg
                            and self.state.uncertainty_aware)
         first = min(2, self.iters1) if run_mono_filter else self.iters1
-        with TIMER.phase("track.fe.graph_update"):
+        with TIMER.phase("track.fe.graph_update", device=g.device):
             g.update_n(first, None, None, use_inactive=True,
                        eps=self.update_eps)
         if run_mono_filter:
-            with TIMER.phase("track.fe.mono_filter"):
+            with TIMER.phase("track.fe.mono_filter", device=g.device):
                 self._filter_mono_depth(self.t1 - 1)
             if self.iters1 > first:
-                with TIMER.phase("track.fe.graph_update"):
+                with TIMER.phase("track.fe.graph_update", device=g.device):
                     g.update_n(self.iters1 - first, None, None,
                                use_inactive=True, eps=self.update_eps)
 
-        with TIMER.phase("track.fe.kf_decision"):
+        with TIMER.phase("track.fe.kf_decision", device=g.device):
             dev = self.state.store.poses.device
             d = kstore.distance(self.state.store,
                                 torch.tensor([self.t1 - 2], device=dev),
@@ -137,7 +137,7 @@ class Frontend:
                     and self.num_keyframes_dropped < self.max_consecutive_drop
                     and not force_to_add_keyframe)
         if drop:
-            with TIMER.phase("track.fe.rm_keyframe"):
+            with TIMER.phase("track.fe.rm_keyframe", device=g.device):
                 g.rm_keyframe(self.t1 - 1)
                 self.state.remove_keyframe_host(self.t1 - 1)
             self.num_keyframes_dropped += 1
@@ -149,16 +149,16 @@ class Frontend:
             ran_loop = False
             if (self.enable_loop and cur_t > self.frontend_window
                     and self.backend is not None):
-                with TIMER.phase("track.fe.loop_ba"):
+                with TIMER.phase("track.fe.loop_ba", device=g.device):
                     _, n_edge = self.backend.loop_ba(
                         t_start=0, t_end=cur_t, steps=self.iters2,
                         motion_only=False, local_graph=g)
                 ran_loop = n_edge > 0
             if not ran_loop:
-                with TIMER.phase("track.fe.graph_update"):
+                with TIMER.phase("track.fe.graph_update", device=g.device):
                     g.update_n(self.iters2, None, None, use_inactive=True,
                                eps=self.update_eps)
-        with TIMER.phase("track.fe.prep_next"):
+        with TIMER.phase("track.fe.prep_next", device=g.device):
             self._prep_next_slot()
 
     def __initialize(self):
@@ -190,13 +190,18 @@ class Frontend:
         self._update_depth_masks()
 
     def __call__(self, force_to_add_keyframe=False):
-        if not self.is_initialized and self.state.counter == self.warmup:
-            self.__initialize()
-            self._update_depth_masks()
-        elif self.is_initialized and self.t1 < self.state.counter:
-            if self.uncertainty_update_fn is not None:
-                with TIMER.phase("track.fe.uncer_update"):
-                    self.uncertainty_update_fn()
-            self.__update(force_to_add_keyframe)
-            lo = int(self.graph.ii.min()) if len(self.graph.ii) else 0
-            self._update_depth_masks(frames=np.arange(lo, self.t1))
+        """Its spans work for unit: the timestamp of the newest keyframe."""
+        st = self.state
+        with TIMER.unit(float(st.timestamps[st.counter - 1])
+                        if st.counter else None):
+            if not self.is_initialized and st.counter == self.warmup:
+                self.__initialize()
+                self._update_depth_masks()
+            elif self.is_initialized and self.t1 < st.counter:
+                if self.uncertainty_update_fn is not None:
+                    with TIMER.phase("track.fe.uncer_update",
+                                     device=self.graph.device):
+                        self.uncertainty_update_fn()
+                self.__update(force_to_add_keyframe)
+                lo = int(self.graph.ii.min()) if len(self.graph.ii) else 0
+                self._update_depth_masks(frames=np.arange(lo, self.t1))

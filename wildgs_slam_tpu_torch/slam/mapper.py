@@ -39,7 +39,9 @@ them without a backward (the GUI's), ``refine_calls`` the refined frames
 and ``refine_steps`` their steps, each of which reads |delta| back to the
 host once; ``fills`` the depth fills, ``invalid_keyframes`` the keyframes
 skipped for too few valid depths, ``projective_deforms`` the projective
-deformations.
+deformations. ``TIMER`` spans: the intake phases, ``map.opt_segment`` and
+each step's ``map.step`` with its render, loss, backward and optim parts,
+all for the keyframe being taken in; the counter ``map.live_slots``.
 """
 
 from __future__ import annotations
@@ -515,7 +517,7 @@ class Mapper:
 
         ovf = torch.zeros((), dtype=torch.int64, device=self.device)
         seg_losses = []
-        with TIMER.phase("map.opt_segment", sync=True):
+        with TIMER.phase("map.opt_segment"):   # ends in the .cpu() read
             for i in range(K):
                 loss, overflow = self._opt_step(
                     int(idxs[i]), freeze[i], int(d_base[i]), d_samples[i],
@@ -542,80 +544,101 @@ class Mapper:
     def _opt_step(self, idx, freeze, d_base, d_samples, it_count,
                   initialization, render_fn=None):
         """One mapping iteration on view idx: render, losses, three Adams.
-        Returns (loss, overflow) as device tensors."""
-        g = self.gaussians
-        up = self.loss_cfg["uncertainty_params"]
-        opt = self.loss_cfg["opt_params"]
-        leaves = gm.GaussianParams(*[t.detach().requires_grad_(True)
-                                     for t in g.params.tensors()])
-        exposure = self.vstore.exposure[idx].clone().requires_grad_(True)
-        m2d = torch.zeros(self.capacity, 2, device=self.device,
-                          requires_grad=True)
-        if render_fn is not None:
-            out = render_fn(leaves, g.aux.alive, self.vstore.w2c[idx],
-                            self.intrinsics_full, mean2d_offset=m2d)
-        else:
-            out = self._render_fn()(
-                leaves.xyz, gm.get_scaling(leaves),
-                gm.get_rotation_xyzw(leaves), gm.get_opacity(leaves),
-                gm.get_sh(leaves), self.vstore.w2c[idx], self.intrinsics_full,
-                self.image_size, alive=g.aux.alive,
-                capacity=self.render_list_capacity, chunk=64,
-                mean2d_offset=m2d, bin_kw=self.bin_kw)
-        gt = self.vstore.colors[idx].to(torch.float32)
-        ref_depth = self.vstore.depths[idx]
-        mlp_params = list(self.uncer_mlp.parameters())
+        Returns (loss, overflow) as device tensors. Host spans (the step is
+        launch-bound): ``map.step`` holding ``.render``, ``.loss``,
+        ``.backward`` and ``.optim``; the counter ``map.live_slots`` sums
+        the render's live tile-list entries on the device."""
+        with TIMER.phase("map.step"):
+            g = self.gaussians
+            up = self.loss_cfg["uncertainty_params"]
+            opt = self.loss_cfg["opt_params"]
+            with TIMER.phase("map.step.render"):
+                leaves = gm.GaussianParams(*[t.detach().requires_grad_(True)
+                                             for t in g.params.tensors()])
+                exposure = self.vstore.exposure[idx].clone().requires_grad_(
+                    True)
+                m2d = torch.zeros(self.capacity, 2, device=self.device,
+                                  requires_grad=True)
+                if render_fn is not None:
+                    out = render_fn(leaves, g.aux.alive, self.vstore.w2c[idx],
+                                    self.intrinsics_full, mean2d_offset=m2d)
+                else:
+                    out = self._render_fn()(
+                        leaves.xyz, gm.get_scaling(leaves),
+                        gm.get_rotation_xyzw(leaves), gm.get_opacity(leaves),
+                        gm.get_sh(leaves), self.vstore.w2c[idx],
+                        self.intrinsics_full, self.image_size,
+                        alive=g.aux.alive,
+                        capacity=self.render_list_capacity, chunk=64,
+                        mean2d_offset=m2d, bin_kw=self.bin_kw)
+                if out.tile_counts is not None:
+                    TIMER.count("map.live_slots", out.tile_counts)
 
-        if self.uncertainty_aware:
-            fh, fw, fd = self.vstore.features.shape[1:]
-            sigma = self.uncer_mlp(self.vstore.features[idx].to(torch.float32))
-            lo = losses.mapping_loss_uncertainty(
-                out.color, out.depth, gt, ref_depth, sigma, out.alpha,
-                exposure[0], exposure[1], train_frac=up["train_frac_fix"],
-                ssim_frac=up["train_frac_fix"], cfg=self.loss_cfg,
-                initialization=initialization,
-                ref_depth_median=self.vstore.depth_med[idx])
-            total = lo.total
-            if freeze:
-                u = lo.uncer_loss.mean()
-                total = total - up["ssim_mult"] * u + up["ssim_mult"] * u.detach()
-            else:
-                nb = self.vstore.features[d_base:d_base + 5].to(torch.float32)
-                samp = nb.reshape(5 * fh * fw, fd)[d_samples]
-                reg = losses.dino_regularization_loss(self.uncer_mlp(samp),
-                                                      samp)
-                total = total + up["reg_mult"] * reg
-        else:
-            total = losses.mapping_loss_rgbd(
-                out.color, out.depth, gt, ref_depth, exposure[0], exposure[1],
-                cfg_alpha=self.loss_cfg["alpha"],
-                rgb_boundary_threshold=self.loss_cfg["rgb_boundary_threshold"],
-                use_ssim=self.loss_cfg["ssim_loss"],
-                lambda_dssim=self.loss_cfg["lambda_dssim"],
-                initialization=initialization)
-        total = total + 10.0 * losses.isotropic_loss(leaves.scaling,
-                                                     g.aux.alive)
+            with TIMER.phase("map.step.loss"):
+                gt = self.vstore.colors[idx].to(torch.float32)
+                ref_depth = self.vstore.depths[idx]
+                mlp_params = list(self.uncer_mlp.parameters())
+                if self.uncertainty_aware:
+                    fh, fw, fd = self.vstore.features.shape[1:]
+                    sigma = self.uncer_mlp(
+                        self.vstore.features[idx].to(torch.float32))
+                    lo = losses.mapping_loss_uncertainty(
+                        out.color, out.depth, gt, ref_depth, sigma, out.alpha,
+                        exposure[0], exposure[1],
+                        train_frac=up["train_frac_fix"],
+                        ssim_frac=up["train_frac_fix"], cfg=self.loss_cfg,
+                        initialization=initialization,
+                        ref_depth_median=self.vstore.depth_med[idx])
+                    total = lo.total
+                    if freeze:
+                        u = lo.uncer_loss.mean()
+                        total = (total - up["ssim_mult"] * u
+                                 + up["ssim_mult"] * u.detach())
+                    else:
+                        nb = self.vstore.features[d_base:d_base + 5].to(
+                            torch.float32)
+                        samp = nb.reshape(5 * fh * fw, fd)[d_samples]
+                        reg = losses.dino_regularization_loss(
+                            self.uncer_mlp(samp), samp)
+                        total = total + up["reg_mult"] * reg
+                else:
+                    total = losses.mapping_loss_rgbd(
+                        out.color, out.depth, gt, ref_depth, exposure[0],
+                        exposure[1], cfg_alpha=self.loss_cfg["alpha"],
+                        rgb_boundary_threshold=self.loss_cfg[
+                            "rgb_boundary_threshold"],
+                        use_ssim=self.loss_cfg["ssim_loss"],
+                        lambda_dssim=self.loss_cfg["lambda_dssim"],
+                        initialization=initialization)
+                total = total + 10.0 * losses.isotropic_loss(leaves.scaling,
+                                                             g.aux.alive)
 
-        inputs = leaves.tensors() + [exposure, m2d] + mlp_params
-        grads = torch.autograd.grad(total, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if gr is None else gr
-                 for x, gr in zip(inputs, grads)]
-        g_params = gm.GaussianParams(*grads[:6])
-        g_exp, g_m2d, g_mlp = grads[6], grads[7], grads[8:]
+            with TIMER.phase("map.step.backward"):
+                inputs = leaves.tensors() + [exposure, m2d] + mlp_params
+                grads = torch.autograd.grad(total, inputs, allow_unused=True)
+                grads = [torch.zeros_like(x) if gr is None else gr
+                         for x, gr in zip(inputs, grads)]
+            g_params = gm.GaussianParams(*grads[:6])
+            g_exp, g_m2d, g_mlp = grads[6], grads[7], grads[8:]
 
-        gm.add_densification_stats(g, g_m2d, out.radii)
-        xyz_lr = gm.expon_lr(it_count, opt["position_lr_init"] * 6.0,
-                             opt["position_lr_final"] * 6.0,
-                             opt["position_lr_delay_mult"],
-                             opt["position_lr_max_steps"])
-        gm.adam_step(g, g_params, dict(
-            xyz=xyz_lr, f_dc=opt["feature_lr"],
-            f_rest=opt["feature_lr"] / 20.0, opacity=opt["opacity_lr"],
-            scaling=opt["scaling_lr"] * 6.0, rotation=opt["rotation_lr"]))
-        if idx != 0:  # frame 0's exposure stays fixed
-            viewpoints.exposure_adam_step(self.vstore, idx, g_exp, lr=0.01)
-        if self.uncertainty_aware:
-            self.uncer_adam.step(g_mlp, lr=up["lr"], wd=up["weight_decay"])
+            with TIMER.phase("map.step.optim"):
+                gm.add_densification_stats(g, g_m2d, out.radii)
+                xyz_lr = gm.expon_lr(it_count, opt["position_lr_init"] * 6.0,
+                                     opt["position_lr_final"] * 6.0,
+                                     opt["position_lr_delay_mult"],
+                                     opt["position_lr_max_steps"])
+                gm.adam_step(g, g_params, dict(
+                    xyz=xyz_lr, f_dc=opt["feature_lr"],
+                    f_rest=opt["feature_lr"] / 20.0,
+                    opacity=opt["opacity_lr"],
+                    scaling=opt["scaling_lr"] * 6.0,
+                    rotation=opt["rotation_lr"]))
+                if idx != 0:  # frame 0's exposure stays fixed
+                    viewpoints.exposure_adam_step(self.vstore, idx, g_exp,
+                                                  lr=0.01)
+                if self.uncertainty_aware:
+                    self.uncer_adam.step(g_mlp, lr=up["lr"],
+                                         wd=up["weight_decay"])
         return total.detach(), out.overflow
 
     def _render_fn(self, backward=True):
@@ -774,34 +797,36 @@ class Mapper:
         self.current_window = self.current_window[-self.window_size:]
 
     def on_keyframe(self, video_idx: int, frame_idx: int):
-        """Per-keyframe mapping step."""
-        if self._make_viewpoint(video_idx):
-            self.is_kf[video_idx] = False
-            return
-        with TIMER.phase("map.kf_resync_deform", sync=True):
-            self._update_keyframes_from_frontend()
-        self.frame_idxs.append(frame_idx)
-        self.video_idxs.append(video_idx)
+        """Per-keyframe mapping step; its spans work for unit
+        `video_idx`."""
+        with TIMER.unit(video_idx):
+            if self._make_viewpoint(video_idx):
+                self.is_kf[video_idx] = False
+                return
+            with TIMER.phase("map.kf_resync_deform", sync=True):
+                self._update_keyframes_from_frontend()
+            self.frame_idxs.append(frame_idx)
+            self.video_idxs.append(video_idx)
 
-        with TIMER.phase("map.window_update", sync=True):
-            curr_vis = self._render_ntouched(video_idx) > 0
-            self.current_window = self._add_to_window(video_idx, curr_vis,
-                                                      self.current_window)
-        self.is_kf[video_idx] = True
-        with TIMER.phase("map.seed_gaussians", sync=True):
-            self._seed_gaussians(video_idx, init=False)
+            with TIMER.phase("map.window_update", sync=True):
+                curr_vis = self._render_ntouched(video_idx) > 0
+                self.current_window = self._add_to_window(video_idx, curr_vis,
+                                                          self.current_window)
+            self.is_kf[video_idx] = True
+            with TIMER.phase("map.seed_gaussians", sync=True):
+                self._seed_gaussians(video_idx, init=False)
 
-        for v in self.current_window:
-            if v != 0:
-                viewpoints.reset_exposure_adam(self.vstore, v)
+            for v in self.current_window:
+                if v != 0:
+                    viewpoints.reset_exposure_adam(self.vstore, v)
 
-        split = self.map_opt_online(self.current_window,
-                                    iters=self.mapping_itr_num)
-        if split:
-            self.map_opt_online(self.current_window, iters=1)
-        if self.gui is not None:
-            with TIMER.phase("map.gui_push", sync=True):
-                self._send_to_gui(video_idx)
+            split = self.map_opt_online(self.current_window,
+                                        iters=self.mapping_itr_num)
+            if split:
+                self.map_opt_online(self.current_window, iters=1)
+            if self.gui is not None:
+                with TIMER.phase("map.gui_push", sync=True):
+                    self._send_to_gui(video_idx)
 
     @torch.no_grad()
     def _send_to_gui(self, video_idx: int):

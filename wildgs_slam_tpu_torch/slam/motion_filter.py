@@ -69,40 +69,44 @@ class MotionFilter:
     @torch.no_grad()
     def track(self, tstamp, image) -> bool:
         """image (H, W, 3) float in [0, 1]. Returns the force-keyframe
-        flag."""
-        state = self.state
-        dev = state.store.poses.device
-        with TIMER.phase("track.mf.encode_fmap"):
-            img_norm = normalize_image(torch.as_tensor(
-                np.ascontiguousarray(image, np.float32), device=dev))
-            gmap = _encode_fmap(self.model, img_norm)
-        if state.counter == 0:
-            self._append_keyframe(tstamp, image, img_norm, gmap, first=True)
-            return False
-        with TIMER.phase("track.mf.flow"):
-            flow = float(_flow_magnitude(self.model, self.fmap, gmap,
-                                         self.net, self.inp))
-        force = False
-        if self.force_every > 0:
-            last_t = state.timestamps[state.counter - 1]
-            force = (tstamp - last_t) >= self.force_every
-        if flow > self.thresh or force:
-            self.count = 0
-            self._append_keyframe(tstamp, image, img_norm, gmap, first=False)
-        else:
-            self.count += 1
-        return force
+        flag. Its spans work for unit `tstamp`."""
+        with TIMER.unit(tstamp):
+            state = self.state
+            dev = state.store.poses.device
+            with TIMER.phase("track.mf.encode_fmap", device=dev):
+                img_norm = normalize_image(torch.as_tensor(
+                    np.ascontiguousarray(image, np.float32), device=dev))
+                gmap = _encode_fmap(self.model, img_norm)
+            if state.counter == 0:
+                self._append_keyframe(tstamp, image, img_norm, gmap,
+                                      first=True)
+                return False
+            with TIMER.phase("track.mf.flow", device=dev):
+                flow = float(_flow_magnitude(self.model, self.fmap, gmap,
+                                             self.net, self.inp))
+            force = False
+            if self.force_every > 0:
+                last_t = state.timestamps[state.counter - 1]
+                force = (tstamp - last_t) >= self.force_every
+            if flow > self.thresh or force:
+                self.count = 0
+                self._append_keyframe(tstamp, image, img_norm, gmap,
+                                      first=False)
+            else:
+                self.count += 1
+            return force
 
     def _append_keyframe(self, tstamp, image, img_norm, gmap, first):
         state = self.state
-        with TIMER.phase("track.mf.encode_ctx"):
+        dev = state.store.poses.device
+        with TIMER.phase("track.mf.encode_ctx", device=dev):
             net, inp = _encode_context(self.model, img_norm)
         self.fmap, self.net, self.inp = gmap, net, inp
-        with TIMER.phase("track.mf.priors"):
+        with TIMER.phase("track.mf.priors", device=dev):
             depth = self.depth_fn(image) if self.depth_fn is not None else None
             dino = self.feat_fn(image) if self.feat_fn is not None else None
         idx = state.counter
-        with TIMER.phase("track.mf.append"):
+        with TIMER.phase("track.mf.append", device=dev):
             kstore.append(
                 state.store, idx, tstamp,
                 pose=([0, 0, 0, 0, 0, 0, 1.0] if first else None),

@@ -204,9 +204,9 @@ class SLAM:
                               f"{ckpt_path}", FontColor.INFO)
             with TIMER.phase("data.load"):
                 timestamp, image, _, _ = self.stream[i]
-            with TIMER.phase("track.motion_filter", sync=True):
+            with TIMER.phase("track.motion_filter", device=self.device):
                 force = self.motion_filter.track(float(timestamp), image)
-            with TIMER.phase("track.frontend", sync=True):
+            with TIMER.phase("track.frontend", device=self.device):
                 self.frontend(force)
             debug.anomaly_check("track.frontend", self.state.store.poses,
                                 self.state.store.disps)
