@@ -8,7 +8,7 @@ Phases, each printing its own lines:
      port pins its own convolutions to float32);
   2. build of the CUDA kernels from csrc/ (nvcc, one per source, in
      parallel), with what ptxas reports, and one resource line for each of
-     K1's and K4's kernels;
+     K1's and K4's kernels and of C1's tiles;
   3. each kernel against its plain PyTorch version at mapping shapes
      (T=768 tiles, K=512 slots, chunk 64, N=262,144 Gaussians), on a table
      made by the port's own projection and binning of a seeded scene: K1/K2
@@ -21,7 +21,13 @@ Phases, each printing its own lines:
      calls; the median of CUDA-event rounds of back-to-back calls beside
      it, which includes any wait for the host) beside its bound, its plain
      version's time and, where one exists, one library call's device time;
-     K4's zero fill and its add apart;
+     K4's zero fill and its add apart. Then C1 (conv_nhwc, the update
+     operator's convolutions): each launch of one DroidNet.update call at
+     64 edges and at one (48x64, seeded) against its plain version within
+     max-abs 1e-5 of the largest entry, timed beside its bound (2 M N K at
+     67 TFLOP/s), its plain version and cuDNN's F.conv2d; the whole call,
+     kernel against plain, with no cuDNN or FFT kernel among its device
+     operations and 14 launches in track.upd.kernel_convs;
   5. the mapper's keyframe path through Mapper's entry points
      (initialize_mapper, then on_keyframe; 100 iterations per keyframe
      after the init's 1,050, the config's 450 cut) at the full
@@ -40,7 +46,11 @@ Phases, each printing its own lines:
      frontend updates, with its times, memory and a torch.profiler summary,
      and one Backend.dense_ba(2) on its 20 keyframes (global BA with the
      on-the-fly correlation at full width: ms per update_lowmem step, peak
-     memory);
+     memory); then MotionFilter.track in one process, C1 against the plain
+     version (cuDNN), 20 rounds K P P K of 16 frames. From phase 5 on,
+     C1's launches must be 14 for each DroidNet.update call on the card (a
+     forward hook counts the calls), and phases 6, 7, 8-10 and 11 must
+     launch it;
   7. the whole system through SLAM.run() at the same widths on 48 frames of
      the tracking scene at half its motion per frame, every frame a
      keyframe, under the oracle (loop
@@ -119,7 +129,8 @@ Phases, each printing its own lines:
      and (c) the network update_n with and without a mesh, on the last
      window of (d)'s run without a mesh: one update within 1e-5 + 1e-4
      rel with cuDNN off in both (cuDNN's algorithm depends on the batch, a
-     shard's smaller one rounds differently), eight with it on printed,
+     shard's smaller one rounds differently; the operator's kernel gives
+     each edge the same sums at any batch), eight with it on printed,
      ms per iteration and peak memory. (e)
      run.build(--mesh 2) raises make_mesh's message on one card;
   12. the measuring programs. (a) python -m wildgs_slam_tpu_torch.bench
@@ -155,7 +166,8 @@ Phases, each printing its own lines:
      and per update, the phase split, device ms and operations; they
      launch none of K1-K4;
   14. one JSON line describing every kernel (with its bench-shape numbers
-     under "bench_shape");
+     under "bench_shape"; C1's launches by phase and its rows under
+     "conv_nhwc");
   15. the card again, then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -179,6 +191,7 @@ import io
 import json
 import os
 import pickle
+import re
 import shutil
 import struct
 import subprocess
@@ -192,6 +205,7 @@ sys.path.insert(0, KERNELS_FROM or HERE)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from wildgs_slam_tpu_torch import kernels  # noqa: E402
 from wildgs_slam_tpu_torch.config import load_config  # noqa: E402
@@ -212,9 +226,15 @@ from wildgs_slam_tpu_torch.slam.state import SlamState  # noqa: E402
 from wildgs_slam_tpu_torch.utils.eval_traj import (  # noqa: E402
     ape_statistics, read_metric)
 from wildgs_slam_tpu_torch.utils.png import read_png, write_png  # noqa
+from wildgs_slam_tpu_torch.utils.precision import float32_convs  # noqa
 from wildgs_slam_tpu_torch.utils.profiling import (  # noqa: E402
     TIMER, card_line, device_summary)
 from wildgs_slam_tpu_torch.utils.resample import resize_u8  # noqa: E402
+
+try:
+    from wildgs_slam_tpu_torch.ops import conv_nhwc as cn  # noqa: E402
+except ImportError:     # --kernels-from a commit before the update
+    cn = None           # operator's kernel: K1-K4 only
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
                       "tum_dynamic.yaml")
@@ -238,6 +258,20 @@ SCATTER_MAX_REL = 1e-5   # K4: the atomics sum in another order
 KERNELS = {   # wrapper name -> the wrapper, whose .launches counts
     "composite_fwd": cc.composite_fwd, "composite_bwd": cc.composite_bwd,
     "table_gather": tg.table_gather, "table_scatter_add": tg.table_scatter_add}
+# C1, conv_nhwc: the update operator's convolutions, counted apart from
+# K1-K4 (its launches follow the operator's calls, not the renders)
+CONV_LAUNCHES = ("corr0", "corr2", "flow0", "flow2", "gru.w", "gru.glo",
+                 "gru.zr", "gru.q", "heads", "delta", "weight", "agg.conv2",
+                 "agg.eta", "agg.upmask")   # one DroidNet.update call, in order
+CONV_EDGES = (64, 1)     # the frontend's edges, and the motion filter's one
+CONV_GRID = (48, 64)     # tum_dynamic.yaml's 1/8 grid
+CONV_MAX_REL = 1e-5      # max-abs over the largest entry: the kernel and
+                         # cuDNN add up to 4,032 float32 products (9 taps x
+                         # 448 channels) in another order
+LIBRARY_CONV = ("cudnn", "fft", "xmma", "nhwctonchw", "winograd",
+                "pointwise_mult_and_sum_complex", "implicit_gemm")
+MF_ROUNDS = 20           # rounds of the motion filter's in-process A/B
+MF_BLOCK = 16            # frames a block
 TRACK_STEP = 0.25        # the tracking scene's motion per frame, in units of
                          # the mapping scene's motion per keyframe
 TRACK_UPDATES = 8        # frontend updates each tracking run must reach
@@ -335,13 +369,43 @@ def time_ms(fn, reps, warmup=3, rounds=1):
     return float(np.median(time_rounds(fn, reps, warmup, rounds)))
 
 
+UPDATE_CALLS = [0]   # DroidNet.update calls on the card since the reset
+CONV_READ = [0]      # of conv_nhwc's launches since the reset, those tallied
+CONV_TALLY = {}      # phase -> conv_nhwc launches
+
+
+def count_update_calls():
+    """Count every DroidNet.update call on the card (a global forward
+    hook), for read_launches' gate on conv_nhwc."""
+    def hook(module, args, out):
+        if isinstance(module, droid_net.UpdateModule) and out[0].is_cuda:
+            UPDATE_CALLS[0] += 1
+    torch.nn.modules.module.register_module_forward_hook(hook)
+
+
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+    cn.conv_nhwc.launches = UPDATE_CALLS[0] = CONV_READ[0] = 0
 
 
 def read_launches():
+    """K1-K4's launches since reset_launches(). conv_nhwc's launches since
+    then must be one per convolution of each DroidNet.update call on the
+    card; those not yet read are tallied under PHASE[0]."""
+    n, calls = cn.conv_nhwc.launches, UPDATE_CALLS[0]
+    if n != len(CONV_LAUNCHES) * calls:
+        raise AssertionError(f"conv_nhwc launches {n} != "
+                             f"{len(CONV_LAUNCHES)} x {calls} update "
+                             f"operator calls")
+    CONV_TALLY[PHASE[0]] = CONV_TALLY.get(PHASE[0], 0) + n - CONV_READ[0]
+    CONV_READ[0] = n
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def conv_launches_line(label):
+    print(f"{label}: conv_nhwc launches {cn.conv_nhwc.launches} in "
+          f"{UPDATE_CALLS[0]} update operator calls")
 
 
 def bound(ops, nbytes):
@@ -352,13 +416,17 @@ def bound(ops, nbytes):
 
 def ptxas_resources(log, entries):
     """{entry: ptxas's registers, shared memory and spills} for the kernels
-    whose mangled names contain one of `entries`, from the build log."""
+    whose mangled names contain one of `entries`, from the build log; a
+    template's entry carries its integer arguments (<128,128,8,8,2>)."""
     found = {}
     for info in log.values():
         entry, spill = None, ""
         for line in info["ptxas"].splitlines():
             if "Compiling entry function" in line:
                 entry = next((e for e in entries if e in line), None)
+                args = re.findall(r"Li(\d+)E", line)
+                if entry and args:
+                    entry += f"<{','.join(args)}>"
             elif entry and "spill" in line:
                 spill = line.strip()
             elif entry and "Used" in line:
@@ -551,8 +619,9 @@ def kernel_phase(dev):
     print(f"parity scene: N={mapping_table.__defaults__[0]} T={T} K={K} ck=64 "
           f"counts mean={float(counts.float().mean()):.1f} "
           f"max={int(counts.max())} overflow={overflow}")
-    return kernel_rows(dev, counts, table, tw, attrs, ids,
+    rows = kernel_rows(dev, counts, table, tw, attrs, ids,
                        overflow_check=not KERNELS_FROM)
+    return rows, (conv_rows(dev) if cn is not None else [])
 
 
 def kernel_rows(dev, counts, table, tw, attrs, ids, ck=64,
@@ -649,6 +718,181 @@ def kernel_rows(dev, counts, table, tw, attrs, ids, ck=64,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b, bound_by=by, library_ms=None))
     return rows
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """module.name = value inside the block: the A/B's other side."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def plain_operator():
+    """The update operator with the plain version (cuDNN) for the kernel."""
+    return swapped(droid_net, "conv_nhwc", cn.conv_nhwc_plain)
+
+
+def operator_inputs(E, h, w, dev):
+    """Seeded (net, inp, corr, flow, ii) of E edges, 5 a source frame."""
+    g = torch.Generator().manual_seed(1)
+    args = [torch.tanh(torch.randn(E, h, w, 128, generator=g)),
+            torch.relu(torch.randn(E, h, w, 128, generator=g)),
+            torch.randn(E, h, w, 196, generator=g),
+            torch.randn(E, h, w, 4, generator=g),
+            torch.arange(E) // 5]
+    return [a.to(dev) for a in args]
+
+
+def record_convs(model, args):
+    """[(name, sources, packed, act, epilogue)] of the conv_nhwc calls of
+    one DroidNet.update call."""
+    calls = []
+
+    def record(srcs, packed, act="none", **kw):
+        calls.append((srcs, packed, act, kw))
+        return cn.conv_nhwc(srcs, packed, act, **kw)
+    with swapped(droid_net, "conv_nhwc", record):
+        model.update(*args)
+    if len(calls) != len(CONV_LAUNCHES):
+        raise AssertionError(f"DroidNet.update made {len(calls)} "
+                             f"convolutions, not {len(CONV_LAUNCHES)}")
+    return [(name, *c) for name, c in zip(CONV_LAUNCHES, calls)]
+
+
+def library_conv(srcs, packed, kw):
+    """F.conv2d (cuDNN, TF32 off) on the same convolution, inputs and
+    weights made NCHW beforehand: the library's time, which the port does
+    not call."""
+    srcs = [srcs] if isinstance(srcs, torch.Tensor) else list(srcs)
+    if "scale" in kw:
+        srcs[0] = srcs[0] * kw["scale"]
+    x = torch.cat(srcs, -1).permute(0, 3, 1, 2).contiguous()
+    wt = packed.w[..., :packed.n].permute(3, 2, 0, 1).contiguous()
+
+    def run():
+        with float32_convs():
+            return F.conv2d(x, wt, packed.bias, padding=packed.k // 2)
+    return run
+
+
+@torch.no_grad()
+def conv_rows(dev):
+    """C1 (conv_nhwc): each launch of one DroidNet.update call at the
+    frontend's 64 edges and the motion filter's one (48 x 64, seeded
+    weights and inputs) against its plain version on the same inputs, then
+    timed beside its bound (2 M N K operations at 67 TFLOP/s), its plain
+    version and cuDNN's F.conv2d; then the whole call, kernel against
+    plain, its device kernels and its count in track.upd.kernel_convs."""
+    h, w = CONV_GRID
+    model = droid_net.init_droid_net(torch.Generator().manual_seed(0),
+                                     device=dev)
+    rows = []
+    for E in CONV_EDGES:
+        args = operator_inputs(E, h, w, dev)
+        for name, srcs, packed, act, kw in record_convs(model, args):
+            out = cn.conv_nhwc(srcs, packed, act, **kw)
+            ref = cn.conv_nhwc_plain(srcs, packed, act, **kw)
+            err = float((out - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            label = f"conv_nhwc {name} E={E}"
+            if not rel <= CONV_MAX_REL:
+                raise AssertionError(f"{label}: max-abs {err} is {rel:.3e} "
+                                     f"of the largest entry > {CONV_MAX_REL}")
+            x0 = srcs if isinstance(srcs, torch.Tensor) else srcs[0]
+            m, c_in = x0.shape[:3].numel(), packed.w.shape[2]
+            tile = cn.plan(m, packed.n, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            ops = 2 * m * packed.n * packed.k ** 2 * c_in
+            nbytes = (m * c_in + m * packed.n + packed.w.numel()) * 4
+            ms, _, plain_ms = timed_row(
+                label, lambda: cn.conv_nhwc(srcs, packed, act, **kw),
+                lambda: cn.conv_nhwc_plain(srcs, packed, act, **kw),
+                5, 10, 10, 3)
+            lib_ms = device_ms(library_conv(srcs, packed, kw))[0]
+            b, by, _, _ = bound(ops, nbytes)
+            print(f"{label}: N={packed.n} k={packed.k} C_in={c_in} tile "
+                  f"{cn.TILES[tile][0]}x{cn.TILES[tile][1]} (M={m}); "
+                  f"max-abs {err:.3e} ({rel:.3e} of the largest entry); "
+                  f"{ops / 1e9:.3f} GFLOP, bound {b:.4f} ms by {by}, "
+                  f"{b / ms * 100:.1f}% of it; library {lib_ms:.4f} ms")
+            rows.append(dict(
+                name=f"conv_nhwc.{name}.E{E}", route="cuda",
+                source="wildgs_slam_tpu_torch/csrc/conv_nhwc.cu",
+                replaces=None, m=m, tile=cn.TILES[tile],
+                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib_ms))
+        call = lambda: model.update(*args)   # noqa: E731
+        k1 = time_ms(call, 5, rounds=3)
+        with plain_operator():
+            p1 = time_ms(call, 5, rounds=3)
+            p2 = time_ms(call, 5, rounds=3)
+        k2 = time_ms(call, 5, rounds=3)
+        TIMER.reset()
+        call()
+        counted = TIMER.counters["track.upd.kernel_convs"].total()
+        _, by_name = device_ms(call, reps=1)
+        library = sorted(k for k in by_name
+                         if any(t in k.lower() for t in LIBRARY_CONV))
+        print(f"C1 operator call E={E}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+              f"(cuDNN) {p1:.3f} / {p2:.3f} ms (CUDA events, in turns); "
+              f"track.upd.kernel_convs {counted} in one call; "
+              f"device operations {len(by_name)} kinds, library "
+              f"convolutions {library}")
+        if library or counted != len(CONV_LAUNCHES):
+            raise AssertionError(f"C1 operator call E={E}: library "
+                                 f"convolutions {library} or {counted} "
+                                 f"launches counted in one call")
+    return rows
+
+
+def mf_ab(cfg, intr, frames, model, dev):
+    """MotionFilter.track in one process on frames it keeps no keyframe of
+    (thresh 1e9: one keyframe, then the encoder and one update-operator
+    call at one edge a frame): the kernel (K) against the plain version
+    (P, cuDNN), MF_ROUNDS rounds in the order K P P K, MF_BLOCK frames a
+    block; ms a frame, synchronized before and after each call as the
+    benchmark's span is."""
+    H, W = frames[0][1].shape
+    state = SlamState.create(cfg, H, W, intr, buffer=2, device=dev)
+    mf = MotionFilter(state, model, thresh=1e9,
+                      depth_fn=lambda im: frames[0][1],
+                      feat_fn=lambda im: frames[0][3])
+    mf.track(0.0, frames[0][2])
+    sides = {"K": contextlib.nullcontext, "P": plain_operator}
+
+    def block(side):
+        ts = []
+        with sides[side]():
+            for i in range(1, MF_BLOCK + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mf.track(float(i), frames[i][2])
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+        return float(np.mean(ts)) * 1e3
+    for side in sides:       # warm: cuDNN's search for the plain shapes
+        block(side)
+    ms = {side: [] for side in sides}
+    for _ in range(MF_ROUNDS):
+        for side in "KPPK":
+            ms[side].append(block(side))
+    if state.counter != 1:
+        raise AssertionError(f"motion filter A/B: {state.counter} keyframes")
+    rounds = {s: np.asarray(v).reshape(MF_ROUNDS, 2).mean(1)
+              for s, v in ms.items()}
+    print(f"motion filter A/B, {MF_ROUNDS} rounds K P P K of "
+          f"{MF_BLOCK} frames: ms a frame by block " + json.dumps(
+              {s: [round(x, 4) for x in v] for s, v in ms.items()}))
+    d = (rounds["K"] - rounds["P"]) / rounds["P"] * 100
+    print(f"motion filter A/B: K {np.median(rounds['K']):.4f} against P "
+          f"{np.median(rounds['P']):.4f} ms a frame (medians of the rounds); "
+          f"K faster in {int((d < 0).sum())} of {MF_ROUNDS} rounds; K - P by "
+          f"round {json.dumps([round(x, 2) for x in d])} %")
+    return ms
 
 
 def small_render_check(dev):
@@ -1008,6 +1252,7 @@ def run_tracking(cfg, intr, frames, model, dev, oracle):
         step(n_frames)
         n_frames += 1
     rec["launches"] = read_launches()
+    conv_launches_line("tracking oracle" if oracle else "tracking network")
     if frontend.n_updates < TRACK_UPDATES:
         raise AssertionError(f"only {frontend.n_updates} frontend updates in "
                              f"{n_frames} frames")
@@ -1129,6 +1374,7 @@ def tracking_phase(dev):
     profile_window(more_frames, "tracking network (frames to the next "
                    "frontend update)")
     network_dense_ba(rec, model, cfg, dev)
+    mf_ab(cfg, intr, frames_net, model, dev)
     return launches
 
 
@@ -1157,10 +1403,13 @@ def network_dense_ba(rec, model, cfg, dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     TIMER.reset()
+    reset_launches()
     t0 = time.perf_counter()
     n, n_edges = backend.dense_ba(2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    read_launches()
+    conv_launches_line("tracking network dense_ba(2)")
     lowmem_steps("tracking network dense_ba(2)")
     print(f"tracking network dense_ba(2): {n} keyframes, {n_edges} edges, "
           f"{wall * 1e3:.1f} ms in all; peak device memory "
@@ -2584,12 +2833,11 @@ def mesh_tracking_check(dev, pmesh, sdba, col, st, g):
                 raise AssertionError(f"sharded BA D={D} sensor={use_sensor} "
                                      f"disagrees with dba.ba")
 
-    # (c) the network update_n with and without a mesh, same state. The
-    # gate runs both with cuDNN off: cuDNN picks its convolution algorithm
-    # by batch size, so a shard's smaller batch rounds differently (the GRU
-    # state moved by up to 1.3e-5 after one update with cuDNN, 0 without,
-    # on an NVIDIA H100 80GB HBM3), which the JAX test's CPU tolerance does
-    # not allow for. With cuDNN on, the differences are printed and timed.
+    # (c) the network update_n with and without a mesh, same state: gated
+    # after one update with cuDNN off (the operator's convolutions give each
+    # edge the same sums at any batch, so a shard's must equal the single
+    # device's within the JAX test's CPU tolerance), printed and timed with
+    # cuDNN on.
     snap = graph_snapshot(st, g)
     keys = ("net", "target", "weight", "poses", "disps")
 
@@ -3239,18 +3487,22 @@ def main():
         print(f"  {src}: {info['seconds']:.2f} s\n    "
               + info["ptxas"].replace("\n", "\n    "))
     for entry, used in ptxas_resources(
-            log, ("composite_fwd_kernel", "table_scatter_add_kernel")).items():
+            log, ("composite_fwd_kernel", "table_scatter_add_kernel",
+                  "conv_nhwc_kernel")).items():
         print(f"ptxas {entry}: {used}")
 
     t_phase = time.perf_counter()
-    rows = kernel_phase(dev)
+    if cn is not None:
+        count_update_calls()
+    rows, conv = kernel_phase(dev)
     if KERNELS_FROM:
         print(json.dumps({"kernels_from": KERNELS_FROM, "ms": {
-            r["name"]: r["ms"] for r in rows}}))
+            r["name"]: r["ms"] for r in rows + conv}}))
         return
     small_render_check(dev)
     t_phase = phase_seconds("3-4", t_phase)
     count_group_tables()
+    PHASE[0] = "5"
     launches = slice_phase(dev)
     t_phase = phase_seconds("5", t_phase)
     PHASE[0] = "6"
@@ -3310,7 +3562,12 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
     print(f"bench: {json.dumps(bench_last)}")
-    print(json.dumps({"kernels": rows}))
+    print(f"conv_nhwc launches by phase: {json.dumps(CONV_TALLY)}")
+    if not all(CONV_TALLY.get(ph, 0) > 0 for ph in ("6", "7", "8-10", "11")):
+        raise AssertionError("a phase that tracks launched no conv_nhwc")
+    print(json.dumps({"kernels": rows, "conv_nhwc": {
+        "launches_per_update": len(CONV_LAUNCHES),
+        "launches_by_phase": CONV_TALLY, "per_launch": conv}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""K1-K4 on the card against their plain PyTorch versions.
+"""K1-K4 and conv_nhwc on the card against their plain PyTorch versions.
 
 Marked ``gpu``; each test skips when no CUDA device is present (decided
 inside the test, never at import). Run on a machine with a card:
@@ -31,15 +31,29 @@ table built to reach those edges (`skip_edge_table`), alpha within a few
 ulp of 1/255 included. K4 adds with vector atomics:
 `test_scatter_add_repeated_ids` holds it with up to 8 slots on one row,
 empty slots and rows that no slot touches (exactly 0).
+
+conv_nhwc (the update operator's convolutions) at E = 1, 8 and 64 edges,
+at 48 x 64 and 45 x 80 (a ragged M, and the Wild-SLAM MoCap grid), for
+each launch the operator makes (1x1 over 196 and 7x7 over 4 channels, not
+multiples of the 8-channel K-slab; four sources with r * net, the
+global-context vector and the blend; a channel slice as the input of a
+2-channel head): max |kernel - plain| <= 1e-5 max |plain|, because the
+kernel and cuDNN take sums of up to 4,032 float32 products (9 taps x 448
+channels) in another order. The batch changes no result, nor the tile
+the kernel picks by it: one edge alone equals the same edge in a batch of
+64.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from wildgs_slam_tpu_torch.models import droid_net as dn
+from wildgs_slam_tpu_torch.ops import conv_nhwc as cn
 from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as cc
 from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as tg
+from wildgs_slam_tpu_torch.utils.profiling import TIMER
 
 pytestmark = pytest.mark.gpu
 
@@ -467,3 +481,148 @@ def test_table_kernels_check_inputs():
         tg.table_scatter_add(torch.zeros(2, 4, 8, device=dev),
                              torch.zeros(2, 4, dtype=torch.int32,
                                          device=dev), 10)
+
+
+# ---------------------------------------------------------------------------
+# conv_nhwc
+# ---------------------------------------------------------------------------
+
+CONV_CASES = ["corr0", "flow0", "flow2", "w", "glo", "zr", "q", "heads",
+              "delta", "eta", "upmask"]
+
+
+def _conv_case(case, E, h, w, dev, seed=0):
+    """(sources, packed weights, act, epilogue kwargs) of one launch of the
+    update operator, on seeded inputs of its widths."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    def conv(cin, n, k):
+        c = torch.nn.Conv2d(cin, n, k, padding=k // 2)
+        torch.nn.init.normal_(c.weight, std=(1.0 / (cin * k * k)) ** 0.5,
+                              generator=g)
+        torch.nn.init.normal_(c.bias, std=0.1, generator=g)
+        return cn.pack(c.to(dev))
+
+    net = torch.tanh(rnd(E, h, w, 128))
+    srcs4 = (net, torch.relu(rnd(E, h, w, 128)), torch.relu(rnd(E, h, w, 128)),
+             torch.relu(rnd(E, h, w, 64)))
+    if case == "corr0":
+        return rnd(E, h, w, 196), conv(196, 128, 1), "relu", {}
+    if case == "flow0":
+        return rnd(E, h, w, 4), conv(4, 128, 7), "relu", {}
+    if case == "flow2":
+        return srcs4[1], conv(128, 64, 3), "relu", {}
+    if case == "w":
+        return net, conv(128, 128, 1), "sigmoid", {"mul": net}
+    if case == "glo":
+        return rnd(E, 1, 1, 128), conv(128, 384, 1), "none", {}
+    if case == "zr":
+        return srcs4, conv(448, 256, 3), "sigmoid", {
+            "glo": rnd(E, 384)[:, :256]}
+    if case == "q":
+        zr = torch.sigmoid(rnd(E, h, w, 256))
+        return srcs4, conv(448, 128, 3), "tanh", {
+            "glo": rnd(E, 384)[:, 256:], "scale": zr[..., 128:],
+            "blend": (net, zr[..., :128])}
+    if case == "heads":
+        return net, conv(128, 384, 3), "relu", {}
+    heads = torch.relu(rnd(E, h, w, 384))
+    if case == "delta":
+        return heads[..., :128], conv(128, 2, 3), "none", {}
+    if case == "eta":
+        return heads[..., 256:], conv(128, 1, 3), "none", {}
+    assert case == "upmask"
+    return heads[..., 128:256], conv(128, 576, 1), "none", {}
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("h,w", [(48, 64), (45, 80)])
+@pytest.mark.parametrize("E", [1, 8, 64])
+def test_conv_nhwc_matches_plain(E, h, w, case):
+    _need_card()
+    dev = torch.device("cuda")
+    srcs, packed, act, kw = _conv_case(case, E, h, w, dev)
+    before = cn.conv_nhwc.launches
+    out = cn.conv_nhwc(srcs, packed, act, **kw)
+    ref = cn.conv_nhwc_plain(srcs, packed, act, **kw)
+    torch.cuda.synchronize()
+    assert cn.conv_nhwc.launches == before + 1
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((out - ref).abs().max()) <= 1e-5 * scale
+
+
+def _edge(x, i):
+    """Edge i of a launch's operands, as a batch of one."""
+    if isinstance(x, torch.Tensor):
+        return x[i:i + 1]
+    if isinstance(x, dict):
+        return {k: _edge(v, i) for k, v in x.items()}
+    return type(x)(_edge(v, i) for v in x)
+
+
+@pytest.mark.parametrize("case", ["corr0", "flow2", "zr", "q"])
+def test_conv_nhwc_batch_changes_no_result(case):
+    """A batch gives each edge what it gets alone, bit for bit: at 64 edges
+    the kernel runs its 128-row tiles, at one edge its 32-row ones, and
+    every tile adds each output's products in one order, whatever the
+    block's place in the batch. So the edge-sharded update
+    (parallel/sharded_track.py) gets the single device's numbers."""
+    _need_card()
+    dev = torch.device("cuda")
+    srcs, packed, act, kw = _conv_case(case, 64, 45, 80, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (cn.plan(64 * 45 * 80, packed.n, sms) < cn.SHORT
+            <= cn.plan(45 * 80, packed.n, sms))
+    full = cn.conv_nhwc(srcs, packed, act, **kw)
+    for i in (0, 37):
+        one = cn.conv_nhwc(_edge(srcs, i), packed, act, **_edge(kw, i))
+        assert torch.equal(one[0], full[i])
+
+
+def test_conv_nhwc_rejects_bad_inputs():
+    """No fallback: channels that are not contiguous, float64, or a source
+    on another device than the weights raise."""
+    _need_card()
+    dev = torch.device("cuda")
+    packed = cn.pack(torch.nn.Conv2d(8, 4, 3, padding=1).to(dev))
+    x = torch.randn(2, 5, 6, 8, device=dev)
+    before = cn.conv_nhwc.launches
+    for bad in (x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                x.double(), x.cpu()):
+        with pytest.raises(ValueError):
+            cn.conv_nhwc(bad, packed)
+    assert cn.conv_nhwc.launches == before
+
+
+@torch.no_grad()
+def test_update_operator_runs_the_kernel():
+    """DroidNet.update on the card: 14 kernel launches a call, each counted
+    in track.upd.kernel_convs, and its outputs equal the CPU module's
+    (plain path) within 1e-5 of each output's largest entry."""
+    _need_card()
+    dev = torch.device("cuda")
+    model = dn.init_droid_net(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    E, h, w = 6, 48, 64
+    args = [torch.tanh(torch.randn(E, h, w, 128, generator=g)),
+            torch.relu(torch.randn(E, h, w, 128, generator=g)),
+            torch.randn(E, h, w, 196, generator=g),
+            torch.randn(E, h, w, 4, generator=g),
+            torch.tensor([0, 3, 0, 1, 3, 3])]
+    ref = model.update(*args)
+    model = model.to(dev)
+    TIMER.reset()
+    before = cn.conv_nhwc.launches
+    out = model.update(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert cn.conv_nhwc.launches - before == 14
+    assert TIMER.counters["track.upd.kernel_convs"].total() == 14
+    assert torch.equal(out[3].cpu(), ref[3])
+    for a, b in zip(out[:3] + out[4:], ref[:3] + ref[4:]):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale

@@ -284,6 +284,139 @@ def test_cvx_upsample():
 
 
 # ---------------------------------------------------------------------------
+# conv_nhwc: the update operator's convolutions (plain path)
+# ---------------------------------------------------------------------------
+
+CONV_EPILOGUES = ["bias", "glo", "relu", "sigmoid", "tanh", "mul", "blend"]
+
+
+def _nchw_ref(srcs, conv, scale=None):
+    """nn.Conv2d on NCHW of the concatenated sources -> NHWC."""
+    xs = list(srcs)
+    if scale is not None:
+        xs[0] = xs[0] * scale
+    x = torch.cat(xs, -1).permute(0, 3, 1, 2)
+    return conv(x).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("epilogue", CONV_EPILOGUES)
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("channels", [(12,), (8, 196, 4)])
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_conv_nhwc_plain_matches_conv2d(k, channels, scaled, epilogue):
+    """The wrapper on CPU tensors (its plain version) equals nn.Conv2d on
+    NCHW for single- and multi-source inputs, with and without source 0's
+    multiplier, and each epilogue; 1e-6 (the same float32 convolution)."""
+    from wildgs_slam_tpu_torch.ops import conv_nhwc as cn
+
+    g = torch.Generator().manual_seed(k * 100 + len(channels))
+    E, h, w, n = 3, 5, 7, 6
+    srcs = [torch.randn(E, h, w, c, generator=g) for c in channels]
+    conv = torch.nn.Conv2d(sum(channels), n, k, padding=k // 2)
+    conv.bias.normal_(generator=g)
+    scale = (torch.rand(E, h, w, channels[0], generator=g) if scaled
+             else None)
+    ref = _nchw_ref(srcs, conv, scale)
+    kw, act = {}, "none"
+    if epilogue == "glo":
+        kw["glo"] = torch.randn(E, 2 * n, generator=g)[:, n:]   # strided
+        ref = ref + kw["glo"][:, None, None, :]
+    elif epilogue in ("relu", "sigmoid", "tanh"):
+        act = epilogue
+        ref = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+               "tanh": torch.tanh}[act](ref)
+    elif epilogue == "mul":
+        kw["mul"] = torch.randn(E, h, w, n, generator=g)
+        ref = ref * kw["mul"]
+    elif epilogue == "blend":
+        act = "tanh"
+        hz = torch.randn(E, h, w, n, generator=g)
+        z = torch.rand(E, h, w, 2 * n, generator=g)[..., :n]     # a slice
+        kw["blend"] = (hz, z)
+        ref = (1 - z) * hz + z * torch.tanh(ref)
+    out = cn.conv_nhwc(srcs if len(srcs) > 1 else srcs[0], cn.pack(conv),
+                       act, scale=scale, **kw)
+    assert out.shape == (E, h, w, n) and out.is_contiguous()
+    close(out, ref, 1e-6)
+
+
+@torch.no_grad()
+def test_fused_gru_matches_convgru_arithmetic(droid):
+    """ConvGRU (NHWC; z|r in one call, q with r * net and the blend in its
+    epilogue) against the arithmetic it replaced (NCHW, concatenated
+    inputs, separate convolutions), within 1e-6."""
+    _, model = droid
+    gru = model.update.gru
+    rng = np.random.RandomState(11)
+    E, h, w = 3, 6, 8
+    net = T(np.tanh(rng.normal(size=(E, h, w, 128))).astype(np.float32))
+    xs = [T(rng.normal(size=(E, h, w, c)).astype(np.float32))
+          for c in (128, 128, 64)]
+    n_ = net.permute(0, 3, 1, 2)
+    x_ = torch.cat(xs, -1).permute(0, 3, 1, 2)
+    net_inp = torch.cat([n_, x_], 1)
+    glo = (torch.sigmoid(gru.w(n_)) * n_).mean(dim=(2, 3), keepdim=True)
+    z = torch.sigmoid(gru.convz(net_inp) + gru.convz_glo(glo))
+    r = torch.sigmoid(gru.convr(net_inp) + gru.convr_glo(glo))
+    q = torch.tanh(gru.convq(torch.cat([r * n_, x_], 1)) + gru.convq_glo(glo))
+    ref = ((1 - z) * n_ + z * q).permute(0, 2, 3, 1)
+    close(gru(net, xs), ref, 1e-6)
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (64 * 3072, 256, 0), (64 * 3072, 128, 0), (64 * 3072, 64, 1),
+    (64 * 3072, 2, 2), (8 * 3600, 256, 0), (3072, 256, 3), (3072, 128, 3),
+    (3072, 64, 4), (3072, 1, 2), (2 * 3072, 256, 3), (3 * 3072, 256, 0),
+    (64, 384, 3)])
+def test_conv_nhwc_plan_follows_shape(m, n, want):
+    """The tile follows N (128 wide above 64 channels, the narrow tile for
+    the 1- and 2-channel heads) and turns 32 rows high where 128 rows would
+    give fewer blocks than the card has SMs: not at the frontend's 64
+    edges, but for one edge (M = 3,072). The card here has 132 SMs, as an
+    H100 SXM."""
+    from wildgs_slam_tpu_torch.ops import conv_nhwc as cn
+
+    assert cn.plan(m, n, 132) == want
+
+
+@torch.no_grad()
+def test_conv_nhwc_packs_follow_parameters(droid):
+    """The packed weights are rebuilt when a parameter is written in place
+    (load_state_dict): the update equals a fresh module's."""
+    _, model = droid
+    rng = np.random.RandomState(12)
+    E, h, w = 2, 4, 5
+    args = [T(rng.normal(size=(E, h, w, c)).astype(np.float32))
+            for c in (128, 128, 196, 4)] + [torch.tensor([0, 1])]
+    fresh = tdn.DroidNet().eval()
+    scratch = tdn.DroidNet().eval()
+    scratch.update(*args)                      # packs the old weights
+    scratch.load_state_dict(model.state_dict())
+    fresh.load_state_dict(model.state_dict())
+    for a, b in zip(scratch.update(*args), fresh.update(*args)):
+        close(a, b, 0.0)
+
+
+def test_conv_nhwc_checks_inputs():
+    """Channels that are not contiguous, a dtype other than float32, a
+    weight of the wrong input width and unaligned slices raise."""
+    from wildgs_slam_tpu_torch.ops import conv_nhwc as cn
+
+    conv = cn.pack(torch.nn.Conv2d(8, 4, 3, padding=1))
+    x = torch.randn(2, 5, 6, 8)
+    assert cn.conv_nhwc(x, conv).shape == (2, 5, 6, 4)
+    for bad in (x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                x.double(), torch.randn(2, 5, 6, 12)[..., 2:10]):
+        with pytest.raises(ValueError):
+            cn.conv_nhwc(bad, conv)
+    with pytest.raises(ValueError):
+        cn.conv_nhwc(torch.randn(2, 5, 6, 4), conv)
+    with pytest.raises(ValueError):
+        cn.conv_nhwc(x, conv, "gelu")
+
+
+# ---------------------------------------------------------------------------
 # dba
 # ---------------------------------------------------------------------------
 

@@ -8,8 +8,9 @@ with ctypes. Each C entry point takes device pointers, ints and the CUDA
 stream, launches on that stream and returns ``cudaGetLastError()``.
 
 The wrappers that call the entry points live beside their plain PyTorch
-versions: ``ops/rasterizer/composite_cuda.py`` (K1, K2) and
-``ops/rasterizer/table_gather.py`` (K3, K4).
+versions: ``ops/rasterizer/composite_cuda.py`` (K1, K2),
+``ops/rasterizer/table_gather.py`` (K3, K4) and ``ops/conv_nhwc.py`` (the
+update operator's convolutions).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ SIGNATURES = {
     "composite_bwd": [_VP] * 12 + [_CI] * 4 + [_VP],
     "table_gather": [_VP] * 3 + [_CI] * 2 + [_VP],
     "table_scatter_add": [_VP] * 3 + [_CI] * 2 + [_VP],
+    "conv_nhwc": [_VP] * 11 + [_CI] * 21 + [_VP],
 }
 
 

@@ -13,13 +13,18 @@
 Submodules carry upstream's ``droid.pth`` names (``fnet.layer2.0.
 downsample.0``, ``update.corr_encoder.0``, ``update.gru.convz``,
 ``update.agg.eta.0``, ...), so a converted checkpoint loads with
-``load_state_dict``. Convolutions run NCHW inside; the public functions
-keep the JAX package's NHWC layout. Every padding mirrors the flax
-module's: explicit 1 (3x3), 3 (7x7), none for 1x1 ('SAME' at stride 1, and
-at stride 2 on an even input). The gradient clip of the JAX heads is the
-identity in the forward pass and is not carried: the port does not train
-this network. Compute is float32, the JAX package's non-TPU choice: the
-encoders and the update operator pin cuDNN to float32 themselves
+``load_state_dict``. The encoders convolve NCHW inside (cuDNN); the update
+operator's convolutions run NHWC through ``ops/conv_nhwc.py`` (on the card
+its kernel, with the GRU's concatenations, ``r * net``, the global-context
+terms and the state blend fused; ``convz|convr`` and ``delta.0|weight.0|
+agg.conv1`` one launch each), and each launch there adds to ``TIMER``'s
+counter ``track.upd.kernel_convs``. The public functions keep the JAX
+package's NHWC layout. Every padding mirrors the flax module's: explicit 1
+(3x3), 3 (7x7), none for 1x1 ('SAME' at stride 1, and at stride 2 on an
+even input). The gradient clip of the JAX heads is the identity in the
+forward pass and is not carried: the port does not train this network.
+Compute is float32, the JAX package's non-TPU choice: the encoders and the
+update operator's plain path pin cuDNN to float32 themselves
 (``utils.precision.float32_convs``).
 """
 
@@ -29,7 +34,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops.conv_nhwc import conv_nhwc, packs
 from ..utils.precision import float32_convs
+from ..utils.profiling import TIMER
 
 
 def _nchw(x):
@@ -90,6 +97,15 @@ class BasicEncoder(nn.Module):
         return _nhwc(self.conv2(h)).contiguous()
 
 
+def _conv(srcs, packed, act="none", **epilogue):
+    """One convolution of the update operator, NHWC (``conv_nhwc``); each
+    launch of the kernel adds to the counter ``track.upd.kernel_convs``."""
+    out = conv_nhwc(srcs, packed, act, **epilogue)
+    if out.is_cuda:
+        TIMER.count("track.upd.kernel_convs")
+    return out
+
+
 class ConvGRU(nn.Module):
     def __init__(self, h_planes: int = 128, i_planes: int = 320):
         super().__init__()
@@ -103,15 +119,22 @@ class ConvGRU(nn.Module):
         self.convq_glo = nn.Conv2d(h_planes, h_planes, 1)
 
     def forward(self, net, inp):
-        """NCHW net (N, 128, H, W) and concatenated inputs."""
-        net_inp = torch.cat([net, inp], dim=1)
-        glo = torch.sigmoid(self.w(net)) * net
-        glo = glo.mean(dim=(2, 3), keepdim=True)
-        z = torch.sigmoid(self.convz(net_inp) + self.convz_glo(glo))
-        r = torch.sigmoid(self.convr(net_inp) + self.convr_glo(glo))
-        q = torch.tanh(self.convq(torch.cat([r * net, inp], dim=1))
-                       + self.convq_glo(glo))
-        return (1 - z) * net + z * q
+        """NHWC net (E, H, W, 128) and inp, a sequence of NHWC inputs whose
+        channels follow net's (the context, correlation and flow features)
+        -> the new net. Four launches: sigmoid(w(net)) * net; the three
+        global-context terms; z|r; q with r * net and the blend."""
+        p = packs(self, {"w": (self.w,), "zr": (self.convz, self.convr),
+                         "q": (self.convq,),
+                         "glo": (self.convz_glo, self.convr_glo,
+                                 self.convq_glo)})
+        nh = net.shape[-1]
+        srcs = (net, *inp)
+        glo = _conv(net, p["w"], "sigmoid", mul=net).mean(dim=(1, 2),
+                                                          keepdim=True)
+        glo = _conv(glo, p["glo"]).reshape(net.shape[0], 3 * nh)
+        zr = _conv(srcs, p["zr"], "sigmoid", glo=glo[:, :2 * nh])
+        return _conv(srcs, p["q"], "tanh", glo=glo[:, 2 * nh:],
+                     scale=zr[..., nh:], blend=(net, zr[..., :nh]))
 
 
 class GraphAgg(nn.Module):
@@ -122,20 +145,22 @@ class GraphAgg(nn.Module):
         self.eta = nn.Sequential(nn.Conv2d(128, 1, 3, padding=1))
         self.upmask = nn.Sequential(nn.Conv2d(128, 8 * 8 * 9, 1))
 
-    def forward(self, net, ii):
-        """NCHW net (E, 128, H, W), ii (E,) source frame of each edge ->
-        (frames (U,) the sorted distinct source frames, eta (U, H, W),
-        upmask (U, 576, H, W)): the mean over each frame's edges, then the
-        damping and mask heads."""
+    def forward(self, h, ii):
+        """NHWC h (E, H, W, 128) = relu(conv1(net)) of each edge (the update
+        module runs conv1 in one launch with its heads), ii (E,) source frame
+        of each edge -> (frames (U,) the sorted distinct source frames, eta
+        (U, H, W), upmask (U, H, W, 576)): the mean over each frame's edges,
+        then the damping and mask heads."""
+        p = packs(self, {"conv2": (self.conv2,), "eta": (self.eta[0],),
+                         "upmask": (self.upmask[0],)})
         frames, inv = torch.unique(ii, return_inverse=True)
-        h = F.relu(self.conv1(net))
         sums = torch.zeros((frames.shape[0],) + h.shape[1:], dtype=h.dtype,
                            device=h.device).index_add_(0, inv, h)
         counts = torch.bincount(inv, minlength=frames.shape[0]).to(h.dtype)
-        h = sums / torch.clamp(counts, min=1.0)[:, None, None, None]
-        h = F.relu(self.conv2(h))
-        eta = F.softplus(self.eta(h))[:, 0]
-        return frames, 0.01 * eta, self.upmask(h)
+        h = _conv(sums / torch.clamp(counts, min=1.0)[:, None, None, None],
+                  p["conv2"], "relu")
+        eta = F.softplus(_conv(h, p["eta"]))[..., 0]
+        return frames, 0.01 * eta, _conv(h, p["upmask"])
 
 
 class UpdateModule(nn.Module):
@@ -156,22 +181,26 @@ class UpdateModule(nn.Module):
         self.gru = ConvGRU(128, 128 + 128 + 64)
         self.agg = GraphAgg()
 
-    @float32_convs()
     def forward(self, net, inp, corr, flow, ii):
         """NHWC net/inp (E, H, W, 128), corr (E, H, W, 196), flow
         (E, H, W, 4), ii (E,) -> net (E, H, W, 128), delta and weight
         (E, H, W, 2), and per distinct source frame: frames (U,), eta
         (U, H, W), upmask (U, H, W, 576)."""
-        net = _nchw(net)
-        c = self.corr_encoder(_nchw(corr))
-        f = self.flow_encoder(_nchw(flow))
-        net = self.gru(net, torch.cat([_nchw(inp), c, f], dim=1))
-        delta = self.delta(net)
-        weight = torch.sigmoid(self.weight(net))
-        frames, eta, upmask = self.agg(net, ii)
-        return (_nhwc(net).contiguous(), _nhwc(delta).contiguous(),
-                _nhwc(weight).contiguous(), frames, eta,
-                _nhwc(upmask).contiguous())
+        p = packs(self, {
+            "corr0": (self.corr_encoder[0],), "corr2": (self.corr_encoder[2],),
+            "flow0": (self.flow_encoder[0],), "flow2": (self.flow_encoder[2],),
+            "heads": (self.delta[0], self.weight[0], self.agg.conv1),
+            "delta": (self.delta[2],), "weight": (self.weight[2],)})
+        net, inp, corr, flow = (x.contiguous() for x in (net, inp, corr, flow))
+        c = _conv(_conv(corr, p["corr0"], "relu"), p["corr2"], "relu")
+        f = _conv(_conv(flow, p["flow0"], "relu"), p["flow2"], "relu")
+        net = self.gru(net, (inp, c, f))
+        nh = net.shape[-1]
+        heads = _conv(net, p["heads"], "relu")   # delta.0 | weight.0 | conv1
+        delta = _conv(heads[..., :nh], p["delta"])
+        weight = _conv(heads[..., nh:2 * nh], p["weight"], "sigmoid")
+        frames, eta, upmask = self.agg(heads[..., 2 * nh:], ii)
+        return net, delta, weight, frames, eta, upmask
 
 
 class DroidNet(nn.Module):
