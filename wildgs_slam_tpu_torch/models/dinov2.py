@@ -13,7 +13,8 @@ from its pretrained grid as the JAX package resizes it,
 ``jax.image.resize(method="bicubic")`` (Keys a = -0.5, antialiased when it
 shrinks), through the per-axis weights of ``utils/resample.py``; upstream's
 ``F.interpolate(mode="bicubic")`` differs (ROADMAP Queue 3). Attention is
-a float32 matmul and softmax, as the JAX einsum.
+a float32 matmul and softmax, as the JAX einsum. Each forward adds the
+tokens it runs through its blocks to the counter ``prior.tokens``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..utils.precision import float32_convs
+from ..utils.profiling import TIMER
 from ..utils.resample import resize
 
 CONFIGS = {
@@ -132,6 +134,7 @@ class DINOv2(nn.Module):
         if self.num_register_tokens > 0:
             tokens.append(self.register_tokens.expand(B, -1, -1))
         t = torch.cat(tokens + [t], dim=1)
+        TIMER.count("prior.tokens", t.shape[0] * t.shape[1])
         out_layers = tuple(out_layers) or (self.depth - 1,)
         outputs = {}
         for i, blk in enumerate(self.blocks):

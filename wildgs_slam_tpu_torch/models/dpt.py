@@ -10,7 +10,9 @@ upstream's (``pretrained.*``, ``depth_head.projects.{i}``,
 ``depth_head.scratch.output_conv1``, ``depth_head.scratch.output_conv2.{0,2}``),
 so a published metric checkpoint loads with ``load_state_dict``. The
 convolutions run in float32 (``float32_convs``); the fusion resizes are
-bilinear with ``align_corners=True``.
+bilinear with ``align_corners=True``. ``DepthAnythingV2`` times its encoder
+and its head as the device-marked spans ``prior.depth.encoder`` and
+``prior.depth.head``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..utils.precision import float32_convs
+from ..utils.profiling import TIMER
 from .dinov2 import CONFIGS, DINOv2
 
 INTERMEDIATE_LAYER_IDX = {
@@ -129,7 +132,9 @@ class DepthAnythingV2(nn.Module):
         """x (B, H, W, 3) normalized, H and W divisible by 14 -> metric
         depth (B, H, W)."""
         B, H, W, _ = x.shape
-        feats = self.pretrained(x, out_layers=INTERMEDIATE_LAYER_IDX[
-            self.encoder])
-        depth = self.depth_head([f[0] for f in feats], H // 14, W // 14)
-        return depth * self.max_depth
+        with TIMER.phase("prior.depth.encoder", device=x.device):
+            feats = self.pretrained(x, out_layers=INTERMEDIATE_LAYER_IDX[
+                self.encoder])
+        with TIMER.phase("prior.depth.head", device=x.device):
+            depth = self.depth_head([f[0] for f in feats], H // 14, W // 14)
+            return depth * self.max_depth
