@@ -27,7 +27,11 @@ Phases, each printing its own lines:
      max-abs 1e-5 of the largest entry, timed beside its bound (2 M N K at
      67 TFLOP/s), its plain version and cuDNN's F.conv2d; the whole call,
      kernel against plain, with no cuDNN or FFT kernel among its device
-     operations and 14 launches in track.upd.kernel_convs;
+     operations and 14 launches in track.upd.kernel_convs. Then P1/P2
+     (project_fwd/project_bwd, the render's projection) on phase 3's
+     scene against the plain projection and its autograd backward, and
+     timed beside that chain: device ms and operations per call, and the
+     bound by bytes;
   5. the mapper's keyframe path through Mapper's entry points
      (initialize_mapper, then on_keyframe; 100 iterations per keyframe
      after the init's 1,050, the config's 450 cut) at the full
@@ -170,6 +174,13 @@ Phases, each printing its own lines:
      "conv_nhwc");
   15. the card again, then the last line {"ok": true, "device": {...}}.
 
+Wherever K1-K4's launches are gated, P1/P2's are too: P1 as K1 and P2 as
+K2 (once per render_fused call, P2 only with a backward); where TIMER was
+reset with the launch counters (phases 5, 7, 8, 9 and 10), its
+map.proj.kernel must equal P1's launches; the sharded render of phase 11
+(a) projects with the plain projection and launches neither. Phase 14's
+JSON line gives P1/P2's launches by path under "projection".
+
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
 from any working directory.
@@ -235,6 +246,11 @@ try:
     from wildgs_slam_tpu_torch.ops import conv_nhwc as cn  # noqa: E402
 except ImportError:     # --kernels-from a commit before the update
     cn = None           # operator's kernel: K1-K4 only
+try:
+    from wildgs_slam_tpu_torch.ops.rasterizer import (  # noqa: E402
+        projection_cuda as pc)
+except ImportError:     # --kernels-from a commit before the projection's
+    pc = None           # kernels
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
                       "tum_dynamic.yaml")
@@ -255,9 +271,22 @@ SLICE_MAPPING_ITERS = 100   # per on_keyframe call (450 in the config): depth
 TOL = dict(color=1e-5, depth=1e-4, alpha=1e-5, tfin=1e-5, tentry=1e-5)
 BWD_MAX_REL = 1e-5
 SCATTER_MAX_REL = 1e-5   # K4: the atomics sum in another order
+PROJ_MAX_REL = 1e-6      # P1: each packed column against the plain
+                         # projection, which it follows op by op
+# P1/P2 (csrc/project_fused.cu): bytes a row, each read or written once. P1
+# reads means, scales (12 each), rotations (16), opacity (4), the SH DC (12),
+# alive (1) and the offset (8) and writes the packed row (64), radius (4),
+# valid (1), mean2d (8) and depth (4); P2 reads valid (1) and, on a valid
+# row, the geometry and SH (52) and the cotangent's first 12 floats (48), and
+# writes the six gradients (64)
+PROJ_FWD_BYTES = 65 + 81
+PROJ_BWD_VALID_BYTES = 1 + 100 + 64
+PROJ_BWD_OTHER_BYTES = 1 + 64
 KERNELS = {   # wrapper name -> the wrapper, whose .launches counts
     "composite_fwd": cc.composite_fwd, "composite_bwd": cc.composite_bwd,
     "table_gather": tg.table_gather, "table_scatter_add": tg.table_scatter_add}
+if pc is not None:   # P1/P2, the render's projection
+    KERNELS.update(project_fwd=pc.project_fwd, project_bwd=pc.project_bwd)
 # C1, conv_nhwc: the update operator's convolutions, counted apart from
 # K1-K4 (its launches follow the operator's calls, not the renders)
 CONV_LAUNCHES = ("corr0", "corr2", "flow0", "flow2", "gru.w", "gru.glo",
@@ -390,7 +419,8 @@ def reset_launches():
 
 
 def read_launches():
-    """K1-K4's launches since reset_launches(). conv_nhwc's launches since
+    """K1-K4's (and P1/P2's) launches since reset_launches(). conv_nhwc's
+    launches since
     then must be one per convolution of each DroidNet.update call on the
     card; those not yet read are tallied under PHASE[0]."""
     n, calls = cn.conv_nhwc.launches, UPDATE_CALLS[0]
@@ -621,7 +651,111 @@ def kernel_phase(dev):
           f"max={int(counts.max())} overflow={overflow}")
     rows = kernel_rows(dev, counts, table, tw, attrs, ids,
                        overflow_check=not KERNELS_FROM)
-    return rows, (conv_rows(dev) if cn is not None else [])
+    proj = projection_rows(dev) if pc is not None else []
+    return rows, (conv_rows(dev) if cn is not None else []), proj
+
+
+def device_ops(fn, reps=20):
+    """(device ms, device operations) per call of fn: torch.profiler over
+    `reps` calls, as device_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, total_us, n_ops, _ = device_summary(prof)
+    return total_us / 1e3 / reps, n_ops / reps
+
+
+def projection_rows(dev, h=384, w=512):
+    """P1/P2 against the plain projection on phase 3's scene as the mapping
+    step renders it (a zero mean2d_offset, every row alive): radius and
+    valid equal, the packed columns within PROJ_MAX_REL, P2's gradients
+    within BWD_MAX_REL of autograd's on the valid rows (seeded cotangents
+    there); then each timed beside the plain chain it replaces (the
+    projection and pack_attrs under autograd, and their backward): device
+    ms and device operations per call (torch.profiler, 20 calls), the
+    median of CUDA-event rounds of back-to-back calls (for the plain chain
+    the host's launch rate), and the bound by bytes."""
+    gauss, w2c, intr = mapping_scene(dev)
+    n = gauss[0].shape[0]
+    off = torch.zeros(n, 2, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    k = pc.project_fwd(*gauss, w2c, intr, (h, w), off, alive)
+    p = pc.project_fwd_plain(*gauss, w2c, intr, (h, w), off, alive)
+    fwd_rel = max(float((k.attrs[:, c] - p.attrs[:, c]).abs().max()
+                        / (p.attrs[:, c].abs().max() + 1e-12))
+                  for c in range(16))
+    if not (torch.equal(k.radius, p.radius) and torch.equal(k.valid, p.valid)
+            and fwd_rel <= PROJ_MAX_REL):
+        raise AssertionError(f"P1 differs from the plain projection: radius "
+                             f"{torch.equal(k.radius, p.radius)}, valid "
+                             f"{torch.equal(k.valid, p.valid)}, packed "
+                             f"max-rel {fwd_rel}")
+    valid = k.valid
+    g = torch.randn(n, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    g = torch.where(valid[:, None], g, torch.zeros_like(g))
+    leaves = [x.clone().requires_grad_(True) for x in gauss]
+    o = off.clone().requires_grad_(True)
+
+    def plain_fwd():
+        proj = tr.project_gaussians(*leaves, w2c, intr, (h, w))
+        mean2d = proj.mean2d + o
+        valid = proj.valid & alive
+        radius = torch.where(valid, proj.radius,
+                             torch.zeros_like(proj.radius))
+        return tr.pack_attrs(mean2d, proj), radius, valid
+    attrs = plain_fwd()[0]
+
+    def plain_bwd():
+        return torch.autograd.grad(attrs, leaves + [o], g, retain_graph=True)
+
+    def kernel_bwd():
+        return pc.project_bwd(*gauss[:3], gauss[4], valid, w2c, intr, (h, w),
+                              g)
+    ref = plain_bwd()
+    got = kernel_bwd()[:6]
+    bwd_rel = max(float((a[valid] - b[valid]).abs().max()
+                        / (b[valid].abs().max() + 1e-12))
+                  for a, b in zip(got, ref))
+    zeros = all(bool((a[~valid] == 0).all()) for a in got)
+    n_valid = int(valid.sum())
+    print(f"P1 project_fwd vs plain (phase 3's scene, {n_valid} of {n} rows "
+          f"valid): radius, valid equal; packed max-rel {fwd_rel:.3e}; P2 "
+          f"project_bwd vs autograd: max-rel {bwd_rel:.3e} on the valid "
+          f"rows, the others {'0' if zeros else 'NOT 0'}")
+    if not (bwd_rel < BWD_MAX_REL and zeros):
+        raise AssertionError(f"P2 max-rel {bwd_rel}, zeros {zeros}")
+    rows = []
+    for name, fn, plain, nbytes, err in (
+            ("project_fwd",
+             lambda: pc.project_fwd(*gauss, w2c, intr, (h, w), off, alive),
+             plain_fwd, n * PROJ_FWD_BYTES, fwd_rel),
+            ("project_bwd", kernel_bwd, plain_bwd,
+             n_valid * PROJ_BWD_VALID_BYTES
+             + (n - n_valid) * PROJ_BWD_OTHER_BYTES, bwd_rel)):
+        ms, ops = device_ops(fn)
+        plain_ms, plain_ops = device_ops(plain)
+        b2b = time_ms(fn, 50, rounds=5)
+        plain_b2b = time_ms(plain, 10, warmup=2, rounds=5)
+        b, by, _, _ = bound(0, nbytes)
+        print(f"{name}: device {ms:.4f} ms, {ops:.0f} operations per call "
+              f"(torch.profiler, 20 calls); back to back {b2b:.4f} ms; plain "
+              f"chain: device {plain_ms:.4f} ms, {plain_ops:.0f} operations, "
+              f"back to back {plain_b2b:.4f} ms; bound {b:.4f} ms by {by}: "
+              f"{nbytes / 1e6:.2f} MB; {b / ms * 100:.1f}% of bound")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="wildgs_slam_tpu_torch/csrc/project_fused.cu",
+            replaces="wildgs_slam_tpu_torch/ops/rasterizer/projection.py",
+            max_abs_err=err, ms=ms, ops=ops, b2b_ms=b2b, plain_ms=plain_ms,
+            plain_ops=plain_ops, plain_b2b_ms=plain_b2b, bound_ms=b,
+            bound_by=by))
+    return rows
 
 
 def kernel_rows(dev, counts, table, tw, attrs, ids, ck=64,
@@ -1095,7 +1229,7 @@ def slice_phase(dev):
         mapper.on_keyframe(v, v)
     torch.cuda.synchronize()
     t_online = time.perf_counter() - t1
-    launches = read_launches()
+    launches, n_proj = read_launches(), proj_count()
     steps = len(mapper.step_losses)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1116,6 +1250,8 @@ def slice_phase(dev):
     print("phases:\n" + TIMER.report())
     if any(n != steps for n in launches.values()):
         raise AssertionError(f"kernel launches {launches} != {steps} steps")
+    if n_proj is not None:
+        proj_counter_gate("slice", n_proj, steps)
     p = mapper.gaussians.params
     if not (np.all(np.isfinite(ls)) and all(
             bool(torch.isfinite(x).all()) for x in p.tensors())):
@@ -1552,7 +1688,7 @@ def system_phase(dev):
     slam.run()
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = read_launches()
+    launches, n_proj = read_launches(), proj_count()
     renders = mapper.fused_renders
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t_loop = marks["loop_end"] - t0
@@ -1585,8 +1721,7 @@ def system_phase(dev):
     if not any(n > 0 for n in loops):
         raise AssertionError(f"loop closure ran no BA in {n_frames} frames "
                              f"({len(loops)} loop_ba calls)")
-    print(f"system: render_fused calls {renders}; launches "
-          f"{json.dumps(launches)}")
+    launch_gate("system", launches, renders, mapper.gui_renders, n_proj)
 
     out = os.path.join(cfg["data"]["output"], cfg["scene"], "traj")
     metrics = {}
@@ -1846,7 +1981,8 @@ def run_entry(argv, label, cfg, dev, priors=True, n_frames=ENTRY_FRAMES,
     slam.run(resume_path=resume)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    rec = dict(launches=read_launches(), renders=slam.mapper.fused_renders,
+    rec = dict(launches=read_launches(), proj_count=proj_count(),
+               renders=slam.mapper.fused_renders,
                forward_only=slam.mapper.gui_renders, wall0=wall0, t_loop=marks["loop_end"] - t0,
                t_term=t_end - marks["loop_end"],
                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1864,20 +2000,43 @@ def run_entry(argv, label, cfg, dev, priors=True, n_frames=ENTRY_FRAMES,
           f"{pri[1] / max(pri[0], 1) * 1e3:.1f} ms per keyframe over "
           f"{pri[0]}; peak device memory {rec['peak']:.2f} GiB")
     print(f"{label} phases:\n" + TIMER.report())
-    launch_gate(label, rec["launches"], rec["renders"], rec["forward_only"])
+    launch_gate(label, rec["launches"], rec["renders"], rec["forward_only"],
+                rec["proj_count"])
     return slam, resume, rec
 
 
-def launch_gate(label, launches, renders, forward_only=0):
-    """K1 and K3 launch once per render_fused call; K2 and K4 once per call
-    with a backward (all but the GUI's forward renders)."""
+def launch_gate(label, launches, renders, forward_only=0, proj_count=None):
+    """K1, K3 and P1 launch once per render_fused call; K2, K4 and P2 once
+    per call with a backward (all but the GUI's forward renders). Given
+    `proj_count` (TIMER's map.proj.kernel, read with the launches since a
+    TIMER.reset() made with reset_launches()), it must count P1's
+    launches."""
     want = {"composite_fwd": renders, "table_gather": renders,
             "composite_bwd": renders - forward_only,
             "table_scatter_add": renders - forward_only}
+    if pc is not None:
+        want.update(project_fwd=renders, project_bwd=renders - forward_only)
     print(f"{label}: render_fused calls {renders} ({forward_only} without a "
           f"backward); launches {json.dumps(launches)}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
+    if proj_count is not None:
+        proj_counter_gate(label, proj_count, launches["project_fwd"])
+
+
+def proj_count():
+    """TIMER's map.proj.kernel: the renders that took P1/P2 (None without
+    the projection's kernels)."""
+    if pc is None:
+        return None
+    c = TIMER.counters.get("map.proj.kernel")
+    return 0 if c is None else c.total()
+
+
+def proj_counter_gate(label, n, want):
+    print(f"{label}: map.proj.kernel {n}")
+    if n != want:
+        raise AssertionError(f"{label}: map.proj.kernel {n} != {want}")
 
 
 def entry_phase(dev, ckpt):
@@ -2198,7 +2357,7 @@ def splat_slam_phase(dev, ckpt):
         depth_fill.align_scale_and_shift = align
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = read_launches()
+    launches, n_proj = read_launches(), proj_count()
     m = slam.mapper
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     st = TIMER.stats
@@ -2240,7 +2399,8 @@ def splat_slam_phase(dev, ckpt):
           f"{FILL_F64_TOL}); last fills' scale {s32[last].min():.4f}-"
           f"{s32[last].max():.4f}, shift {q32[last].min():.4f}-"
           f"{q32[last].max():.4f} (2 and -1 at s = 1)")
-    launch_gate("splat-slam", launches, m.fused_renders, m.gui_renders)
+    launch_gate("splat-slam", launches, m.fused_renders, m.gui_renders,
+                n_proj)
     kf = read_metric(os.path.join(NONMETRIC_DIR, "splat_slam", "traj",
                                   "kf_traj_metrics.txt"))
     print(f"splat-slam: keyframe ATE rmse {kf * 100:.4f} cm; "
@@ -2748,9 +2908,13 @@ def mesh_render_check(dev, pmesh, sraster, h=384, w=512):
         print(f"mesh (a) D={D} max |sharded - single|: " + json.dumps(
             {k: v[0] for k, v in errs.items()}) + f" (forward atol/rtol "
             f"{FWD_TOL}, gradients {GRAD_TOL})")
-        if any(v != D for v in got.values()):
+        # K1-K4 once per shard; each shard projects with the plain
+        # projection (parallel/sharded_raster.py), so P1/P2 never
+        want = {k: 0 if k in ("project_fwd", "project_bwd") else D
+                for k in got}
+        if got != want:
             raise AssertionError(f"sharded render D={D}: launches {got}, "
-                                 f"not {D} each")
+                                 f"not {want}")
         if drop1[0] or any(x[0] for x in drops):
             where = {d: x[1] for d, x in enumerate(drops) if x[0]}
             print(f"mesh (a) D={D}: NOT GATED: a tile list overflowed "
@@ -3494,10 +3658,10 @@ def main():
     t_phase = time.perf_counter()
     if cn is not None:
         count_update_calls()
-    rows, conv = kernel_phase(dev)
+    rows, conv, proj = kernel_phase(dev)
     if KERNELS_FROM:
         print(json.dumps({"kernels_from": KERNELS_FROM, "ms": {
-            r["name"]: r["ms"] for r in rows + conv}}))
+            r["name"]: r["ms"] for r in rows + conv + proj}}))
         return
     small_render_check(dev)
     t_phase = phase_seconds("3-4", t_phase)
@@ -3545,7 +3709,7 @@ def main():
     ab_phase(dev)
     print(f"phase 13: {time.perf_counter() - t_ab:.1f} s")
     group_tally_report()
-    for row in rows:
+    for row in rows + proj:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
             "mapping": launches[row["name"]],
@@ -3557,6 +3721,10 @@ def main():
             "mesh": mesh_launches[row["name"]],
             "bench": bench_launches[row["name"]],
             "ab": AB_LAUNCHES[row["name"]]}
+        if row in proj:
+            print(f"{row['name']} launches by path: "
+                  f"{json.dumps(row['launches_by_path'])}")
+            continue
         b = bench_rows[row["name"]]
         row["bench_shape"] = {k: b[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3567,7 +3735,8 @@ def main():
         raise AssertionError("a phase that tracks launched no conv_nhwc")
     print(json.dumps({"kernels": rows, "conv_nhwc": {
         "launches_per_update": len(CONV_LAUNCHES),
-        "launches_by_phase": CONV_TALLY, "per_launch": conv}}))
+        "launches_by_phase": CONV_TALLY, "per_launch": conv},
+        "projection": proj}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,14 @@ ulp of 1/255 included. K4 adds with vector atomics:
 `test_scatter_add_repeated_ids` holds it with up to 8 slots on one row,
 empty slots and rows that no slot touches (exactly 0).
 
+P1/P2 (the render's projection, csrc/project_fused.cu) on scenes that cull
+rows every way (near plane, det <= 0, out of the image, not alive): P1
+rounds op by op as the plain projection does on the card, so radius, valid
+and the binning's ids are equal and the packed columns within 1e-6 of their
+largest entry; P2's gradients within max-relative 1e-5 of autograd's (the
+K2 tolerance), exactly 0 on rows that are not valid, and the camera's
+gradient (float64 block sums in a fixed order) bit-equal between two runs.
+
 conv_nhwc (the update operator's convolutions) at E = 1, 8 and 64 edges,
 at 48 x 64 and 45 x 80 (a ragged M, and the Wild-SLAM MoCap grid), for
 each launch the operator makes (1x1 over 196 and 7x7 over 4 channels, not
@@ -52,6 +60,7 @@ from wildgs_slam_tpu_torch.models import droid_net as dn
 from wildgs_slam_tpu_torch.ops import conv_nhwc as cn
 from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as cc
+from wildgs_slam_tpu_torch.ops.rasterizer import projection_cuda as pc
 from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as tg
 from wildgs_slam_tpu_torch.utils.profiling import TIMER
 
@@ -481,6 +490,286 @@ def test_table_kernels_check_inputs():
         tg.table_scatter_add(torch.zeros(2, 4, 8, device=dev),
                              torch.zeros(2, 4, dtype=torch.int32,
                                          device=dev), 10)
+
+
+# ---------------------------------------------------------------------------
+# P1 / P2: the render's projection
+# ---------------------------------------------------------------------------
+
+def needle_rows(n):
+    """projection_scene's needle-shaped rows. Where they stay valid, their
+    float32 det is rounding noise (a*c - b*b of ~1e28 each), and so is
+    their gradient, in P2 and in autograd alike: against a float64
+    autograd witness both miss by up to hundreds of times the largest
+    witness entry (test_project_bwd_matches_autograd holds P2 to that)."""
+    return np.arange(n) % 64 == 5
+
+
+def projection_scene(n, h, w, seed=0):
+    """A seeded numpy scene for the projection, with every way to cull a
+    row: means over 1.4x the view (some out of the image) at z in [-0.5, 5]
+    (some behind the near plane), 1 in 64 rows needle-shaped (one scale up
+    to 1e5, two of 1e-7: det <= 0 by rounding), 1 in 10 not alive, SH of
+    mixed sign (clamped colours), a small mean2d offset and a camera turned
+    and moved off the identity. Returns a dict of float32 arrays (alive
+    bool) and the intrinsics."""
+    rng = np.random.RandomState(seed)
+    f = 0.9 * w
+    z = rng.uniform(-0.5, 5.0, (n, 1))
+    xy = (rng.uniform(-0.7, 0.7, (n, 2)) * np.array([w, h]) / f
+          * np.maximum(z, 0.3))
+    scales = np.exp(rng.uniform(np.log(0.004), np.log(0.03), (n, 3)))
+    needle = needle_rows(n)
+    scales[needle, 0] = np.exp(rng.uniform(np.log(1e2), np.log(1e5),
+                                           int(needle.sum())))
+    scales[needle, 1:] = 1e-7
+    rots = rng.normal(size=(n, 4))
+    rots /= np.linalg.norm(rots, axis=-1, keepdims=True)
+    w2c = np.array([0.03, -0.02, 0.05, 0.04, -0.03, 0.02, 1.0])
+    w2c[3:] /= np.linalg.norm(w2c[3:])
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(means=f32(np.concatenate([xy, z], -1)), scales=f32(scales),
+                rots=f32(rots), opac=f32(0.2 + 0.75 * rng.uniform(size=n)),
+                sh=f32(rng.uniform(-2.5, 1.0, (n, 1, 3))),
+                offset=f32(0.05 * rng.normal(size=(n, 2))),
+                alive=rng.uniform(size=n) >= 0.1, w2c=f32(w2c),
+                intr=f32([f, f, w / 2, h / 2]))
+
+
+def _proj_inputs(s, dev):
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return ([t(s[k]) for k in ("means", "scales", "rots", "opac", "sh")],
+            t(s["w2c"]), t(s["intr"]), t(s["offset"]), t(s["alive"]))
+
+
+PROJ_SHAPES = [(262144, 384, 512), (262144, 360, 640)]
+
+
+@pytest.mark.parametrize("n,h,w", PROJ_SHAPES)
+def test_project_fwd_matches_plain(n, h, w):
+    """P1 against project_gaussians + pack_attrs at phase 3's shape and at
+    MoCap's 360x640 (a half-filled last tile row): radius, valid and the
+    binning's ids and counts equal; each packed column within 1e-6 of its
+    largest entry; every culling reached."""
+    _need_card()
+    dev = torch.device("cuda")
+    gauss, w2c, intr, off, alive = _proj_inputs(projection_scene(n, h, w),
+                                                dev)
+    before = pc.project_fwd.launches
+    k = pc.project_fwd(*gauss, w2c, intr, (h, w), off, alive)
+    assert pc.project_fwd.launches == before + 1
+    p = pc.project_fwd_plain(*gauss, w2c, intr, (h, w), off, alive)
+    proj = tr.project_gaussians(*gauss, w2c, intr, (h, w))
+    conic_det = proj.conic[:, 0] * proj.conic[:, 2] - proj.conic[:, 1] ** 2
+    near = proj.depth <= 0.2
+    assert bool(near.any()) and bool((conic_det <= 0).any())
+    assert bool((~proj.valid & ~near & (conic_det > 0)).any())  # off image
+    assert int((k.radius != p.radius).sum()) == 0
+    assert int((k.valid != p.valid).sum()) == 0
+    assert torch.equal(k.mean2d, p.mean2d) and torch.equal(k.depth, p.depth)
+    for c in range(16):   # a needle at z ~ 0 has a NaN conic on both sides
+        nan = torch.isnan(p.attrs[:, c])
+        assert torch.equal(torch.isnan(k.attrs[:, c]), nan), c
+        assert _max_rel(k.attrs[~nan, c], p.attrs[~nan, c]) <= 1e-6, c
+    assert bool((k.attrs[:, 10:] == 0).all())
+    for kw in (4, 2):
+        bk = tr.bin_gaussians(k.mean2d, k.radius, k.depth, k.valid, (h, w),
+                              capacity=512, kw=kw)
+        bp = tr.bin_gaussians(p.mean2d, p.radius, p.depth, p.valid, (h, w),
+                              capacity=512, kw=kw)
+        assert torch.equal(bk.ids, bp.ids) and torch.equal(bk.counts,
+                                                           bp.counts)
+        assert int(bk.overflow) == int(bp.overflow)
+
+
+def _autograd_rows(gauss, w2c, intr, hw, off, alive, g, pose):
+    """Gradients of sum(rows * g) through the plain projection under
+    autograd: the five Gaussian inputs, the offset and pose_delta."""
+    leaves = [x.clone().requires_grad_(True) for x in gauss]
+    o = off.clone().requires_grad_(True)
+    pd = torch.zeros(6, device=w2c.device, requires_grad=pose)
+    proj = tr.project_gaussians(*leaves, w2c, intr, hw,
+                                pose_delta=pd if pose else None)
+    (tr.pack_attrs(proj.mean2d + o, proj) * g).sum().backward()
+    return [x.grad for x in leaves] + [o.grad] + ([pd.grad] if pose else [])
+
+
+def _kernel_rows(gauss, w2c, intr, hw, off, alive, g, pose):
+    """The same gradients through ProjectRows (P1/P2)."""
+    leaves = [x.clone().requires_grad_(True) for x in gauss]
+    o = off.clone().requires_grad_(True)
+    pd = torch.zeros(6, device=w2c.device, requires_grad=pose)
+    rows = pc.project_rows(*leaves, w2c, intr, hw, mean2d_offset=o,
+                           alive=alive, pose_delta=pd if pose else None)
+    (rows.attrs * g).sum().backward()
+    grads = [x.grad for x in leaves] + [o.grad] + ([pd.grad] if pose else [])
+    return grads, rows.valid
+
+
+@pytest.mark.parametrize("n,h,w", PROJ_SHAPES)
+def test_project_bwd_matches_autograd(n, h, w):
+    """P2 against autograd of the plain projection, with seeded cotangents
+    on every valid row (as K4 gives them). On the valid rows but the
+    needles every gradient within max-rel 1e-5 of autograd's. On the valid
+    needles, where float32 gradients are rounding noise in either order,
+    both are held to a float64 autograd witness, row by row (a row's
+    max-abs miss over its largest witness entry): P2's misses must be
+    distributed as float32 autograd's, their median and 90th percentile
+    within 1.5 times autograd's (0.885-1.253 over 26 scenes of both
+    shapes, this one among them; the largest misses, 1e0-1e4 of the
+    witness, are noise on both sides). A needle that only the float32
+    forward keeps (0-3 a scene) has no witness. On the rows that are not
+    valid P2 writes exact zeros, where autograd gives 0 times the row's
+    partials (NaN on a needle at z ~ 0, whose conic overflows)."""
+    _need_card()
+    dev = torch.device("cuda")
+    gauss, w2c, intr, off, alive = _proj_inputs(projection_scene(n, h, w, 1),
+                                                dev)
+    valid = pc.project_fwd_plain(*gauss, w2c, intr, (h, w), off, alive).valid
+    g = torch.randn(n, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    g = torch.where(valid[:, None], g, torch.zeros_like(g))
+    ref = _autograd_rows(gauss, w2c, intr, (h, w), off, alive, g, False)
+    before = pc.project_bwd.launches
+    got, kvalid = _kernel_rows(gauss, w2c, intr, (h, w), off, alive, g,
+                               False)
+    assert pc.project_bwd.launches == before + 1
+    assert torch.equal(kvalid, valid)
+    g64 = [x.double() for x in gauss]
+    args64 = (w2c.double(), intr.double(), (h, w), off.double(), alive)
+    wit = _autograd_rows(g64, *args64, g.double(), False)
+    needle = torch.as_tensor(needle_rows(n), device=dev)
+    other = valid & ~needle
+    both = valid & pc.project_fwd_plain(*g64, *args64[:4], alive).valid
+    nd = both & needle
+    assert int(nd.sum()) > 500
+    q = torch.tensor([0.5, 0.9], dtype=torch.float64, device=dev)
+
+    def row_miss(x, c):
+        x, c = (t[nd].double().reshape(int(nd.sum()), -1) for t in (x, c))
+        return torch.quantile((x - c).abs().amax(1)
+                              / c.abs().amax(1).clamp_min(1e-30), q)
+    for name, a, b, c in zip(("means", "scales", "rots", "opac", "sh",
+                              "offset"), got, ref, wit):
+        assert _max_rel(a[other], b[other]) < 1e-5, name
+        assert bool(torch.isfinite(a[valid]).all()), name
+        miss_k, miss_a = row_miss(a, c), row_miss(b, c)
+        assert bool((miss_k <= 1.5 * miss_a + 1e-6).all()), (
+            name, miss_k.tolist(), miss_a.tolist())
+        assert bool((a[~valid] == 0).all()), name
+
+
+def test_project_pose_gradient():
+    """The camera's gradient through P2's block sums and lie.se3_retr
+    against autograd within max-rel 1e-5, and bit-equal in two runs. The
+    needles get a zero cotangent here: the camera sums every row, and with
+    the needles' cotangents float32 autograd's camera gradient was NaN in
+    4 of 8 scenes and a float64 witness's up to 3e17 (P2's finite): no
+    reference there."""
+    _need_card()
+    dev = torch.device("cuda")
+    n, h, w = 262144, 384, 512
+    gauss, w2c, intr, off, alive = _proj_inputs(projection_scene(n, h, w, 2),
+                                                dev)
+    valid = pc.project_fwd_plain(*gauss, w2c, intr, (h, w), off, alive).valid
+    g = torch.randn(n, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    keep = valid & ~torch.as_tensor(needle_rows(n), device=dev)
+    g = torch.where(keep[:, None], g, torch.zeros_like(g))
+    ref = _autograd_rows(gauss, w2c, intr, (h, w), off, alive, g, True)[-1]
+    first = _kernel_rows(gauss, w2c, intr, (h, w), off, alive, g, True)[0]
+    again = _kernel_rows(gauss, w2c, intr, (h, w), off, alive, g, True)[0]
+    assert _max_rel(first[-1], ref) < 1e-5
+    assert torch.equal(first[-1], again[-1])
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_render_fused_projection_on_card():
+    """render_fused (P1/P2, K1-K4) against the plain render end to end:
+    colour, depth, alpha, radii, and the gradients of every leaf, the
+    offset and pose_delta; map.proj.kernel counts one per render, and an
+    SH degree above 0 is refused on the card."""
+    _need_card()
+    dev = torch.device("cuda")
+    n, h, w = 400, 48, 64
+    s = projection_scene(n, h, w, 3)
+    gauss, w2c, intr, off, alive = _proj_inputs(s, dev)
+    gauss[1] = gauss[1] * 3.0   # a few px wide at 48x64
+
+    def run(renderer, **kw):
+        leaves = [x.clone().requires_grad_(True) for x in gauss]
+        o = off.clone().requires_grad_(True)
+        pd = torch.zeros(6, device=dev, requires_grad=True)
+        out = renderer(*leaves, w2c, intr, (h, w), pose_delta=pd,
+                       mean2d_offset=o, alive=alive, capacity=256, **kw)
+        ((out.color ** 2).sum() + 0.01 * (out.depth ** 2).sum()
+         + 0.1 * (out.alpha ** 2).sum()).backward()
+        return out, [x.grad for x in leaves] + [o.grad, pd.grad]
+
+    TIMER.reset()
+    before = pc.project_fwd.launches, pc.project_bwd.launches
+    of, gf = run(tr.render_fused, chunk=64)
+    assert (pc.project_fwd.launches, pc.project_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert TIMER.counters["map.proj.kernel"].total() == 1
+    orr, gr = run(tr.render)
+    assert int(of.overflow) == int(orr.overflow)
+    assert torch.equal(of.radii, orr.radii)
+    assert float((of.color - orr.color).abs().max()) < 1e-5
+    assert float((of.alpha - orr.alpha).abs().max()) < 1e-5
+    assert float((of.depth - orr.depth).abs().max()) < 1e-4
+    for name, a, b in zip(("means", "scales", "rots", "opac", "sh", "offset",
+                           "pose"), gf, gr):
+        assert _max_rel(a, b) < 1e-5, name
+    sh16 = torch.cat([gauss[4], torch.zeros(n, 15, 3, device=dev)], 1)
+    launches = pc.project_fwd.launches
+    with pytest.raises(NotImplementedError):
+        tr.render_fused(*gauss[:4], sh16, w2c, intr, (h, w), sh_degree=1,
+                        alive=alive, capacity=256)
+    assert pc.project_fwd.launches == launches
+    TIMER.reset()
+
+
+def test_project_bwd_skips_gradients_not_asked():
+    """Leaves that take no gradient get none from P2, and a camera that
+    takes none gets no pose sum; the one asked equals autograd's."""
+    _need_card()
+    dev = torch.device("cuda")
+    n, h, w = 4096, 48, 64
+    gauss, w2c, intr, off, alive = _proj_inputs(projection_scene(n, h, w, 6),
+                                                dev)
+    m = gauss[0].clone().requires_grad_(True)
+    rows = pc.ProjectRows.apply(m, *gauss[1:], w2c, intr, off, alive, (h, w),
+                                1.0)
+    keep = rows[2] & ~torch.as_tensor(needle_rows(n), device=dev)
+    g = torch.randn(n, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    g = torch.where(keep[:, None], g, torch.zeros_like(g))
+    (rows[0] * g).sum().backward()
+    want = _autograd_rows(gauss, w2c, intr, (h, w), off, alive, g, False)[0]
+    assert _max_rel(m.grad[rows[2]], want[rows[2]]) < 1e-5
+    out = pc.project_bwd(*gauss[:3], gauss[4], rows[2], w2c, intr, (h, w),
+                         g, need=(True, False, False, True, False, False))
+    assert out[1] is None and out[2] is None and out[4] is None
+    assert out[5] is None and out[6] is None
+    assert out[0] is not None and out[3] is not None
+
+
+def test_project_kernels_check_inputs():
+    """No fallback: a CUDA tensor of the wrong type or shape raises."""
+    _need_card()
+    dev = torch.device("cuda")
+    gauss, w2c, intr, off, alive = _proj_inputs(projection_scene(64, 48, 64),
+                                                dev)
+    with pytest.raises(ValueError):
+        pc.project_fwd(*gauss, w2c.double(), intr, (48, 64))
+    with pytest.raises(ValueError):
+        pc.project_fwd(*gauss, w2c, intr, (48, 64), alive=alive.int())
+    rows = pc.project_fwd(*gauss, w2c, intr, (48, 64))
+    with pytest.raises(ValueError):
+        pc.project_bwd(gauss[0], gauss[1], gauss[2], gauss[4], rows.valid,
+                       w2c, intr, (48, 64), torch.zeros(64, 10, device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ stream, launches on that stream and returns ``cudaGetLastError()``.
 
 The wrappers that call the entry points live beside their plain PyTorch
 versions: ``ops/rasterizer/composite_cuda.py`` (K1, K2),
-``ops/rasterizer/table_gather.py`` (K3, K4) and ``ops/conv_nhwc.py`` (the
-update operator's convolutions).
+``ops/rasterizer/table_gather.py`` (K3, K4),
+``ops/rasterizer/projection_cuda.py`` (P1, P2: the render's projection) and
+``ops/conv_nhwc.py`` (the update operator's convolutions).
 """
 
 from __future__ import annotations
@@ -30,14 +31,17 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-# entry point -> argument types (pointers, then ints, then the stream)
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types (pointers, then ints, then floats, then the
+# stream)
 SIGNATURES = {
     "composite_fwd": [_VP] * 9 + [_CI] * 4 + [_VP],
     "composite_bwd": [_VP] * 12 + [_CI] * 4 + [_VP],
     "table_gather": [_VP] * 3 + [_CI] * 2 + [_VP],
     "table_scatter_add": [_VP] * 3 + [_CI] * 2 + [_VP],
     "conv_nhwc": [_VP] * 11 + [_CI] * 21 + [_VP],
+    "project_fwd": [_VP] * 14 + [_CI] * 4 + [_CF] * 2 + [_VP],
+    "project_bwd": [_VP] * 16 + [_CI] * 4 + [_CF] + [_VP],
 }
 
 
@@ -113,9 +117,9 @@ def library():
     return _Library.handle
 
 
-def check(name, x, dtype, shape, device):
+def check(name, x, dtype, shape, device, align=16):
     """Raise unless x is on `device`, of `dtype` and `shape`, contiguous and
-    16-byte aligned (the kernels use float4 accesses)."""
+    `align`-byte aligned (16 where a kernel uses float4 accesses)."""
     if x.device != device:
         raise ValueError(f"{name} on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -123,8 +127,9 @@ def check(name, x, dtype, shape, device):
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         f"aligned")
 
 
 def stream(device):

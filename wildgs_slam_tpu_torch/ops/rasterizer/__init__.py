@@ -4,7 +4,10 @@ Port of ``wildgs_slam_tpu/ops/rasterizer/__init__.py``. Three phases:
 
 1. projection (``projection.py``): 3D -> 2D with EWA covariances and SH
    colours; the camera-pose gradient comes from autograd through
-   ``lie.se3_retr``;
+   ``lie.se3_retr``. ``render_fused`` projects straight into the packed
+   (N, 16) rows: on a CUDA tensor with the CUDA kernels P1/P2
+   (``projection_cuda.py``), else with ``project_gaussians`` +
+   ``pack_attrs``;
 2. binning (``binning.py``): duplicate + sort into per-tile depth-ordered
    id tables of fixed capacity;
 3. compositing: ``render`` uses the plain all-tiles path (``composite.py``,
@@ -24,7 +27,8 @@ import torch
 from . import composite_cuda
 from .binning import TILE, bin_gaussians, num_tiles
 from .composite import RenderOutput, composite, untile
-from .projection import ProjectedGaussians, project_gaussians
+from .projection import ProjectedGaussians, pack_attrs, project_gaussians
+from .projection_cuda import project_rows
 from .table_gather import TableGather
 
 __all__ = ["render", "render_fused", "render_reference", "RenderOutput",
@@ -40,32 +44,6 @@ def gather_table(attrs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                              ids.to(torch.int32).contiguous())
 
 
-def pack_attrs(mean2d: torch.Tensor, proj: ProjectedGaussians):
-    """The (N, 16) rows K3 gathers: mean, conic, colour, opacity, depth and
-    6 zero lanes."""
-    zc = torch.zeros_like(proj.depth)
-    return torch.stack(
-        [mean2d[:, 0], mean2d[:, 1], proj.conic[:, 0], proj.conic[:, 1],
-         proj.conic[:, 2], proj.color[:, 0], proj.color[:, 1],
-         proj.color[:, 2], proj.opacity, proj.depth]
-        + [zc] * (composite_cuda.ATTR_F - 10), dim=1)
-
-
-def _project_and_bin(means3d, scales, rotations, opacities, sh_coeffs, w2c,
-                     intrinsics, image_size, sh_degree, pose_delta,
-                     scale_modifier, mean2d_offset, alive, capacity, bin_kw):
-    proj = project_gaussians(
-        means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
-        image_size, sh_degree=sh_degree, pose_delta=pose_delta,
-        scale_modifier=scale_modifier)
-    valid = proj.valid if alive is None else proj.valid & alive
-    mean2d = proj.mean2d if mean2d_offset is None else (proj.mean2d
-                                                        + mean2d_offset)
-    bins = bin_gaussians(mean2d.detach(), proj.radius, proj.depth.detach(),
-                         valid, image_size, capacity=capacity, kw=bin_kw)
-    return proj, valid, mean2d, bins
-
-
 def render(means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
            image_size, sh_degree=0, pose_delta=None, bg=None, capacity=1024,
            chunk=64, scale_modifier=1.0, mean2d_offset=None, alive=None,
@@ -75,10 +53,15 @@ def render(means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
     every float input, including ``pose_delta`` and ``mean2d_offset``."""
     if bg is None:
         bg = torch.zeros(3, dtype=means3d.dtype, device=means3d.device)
-    proj, valid, mean2d, bins = _project_and_bin(
+    proj = project_gaussians(
         means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
-        image_size, sh_degree, pose_delta, scale_modifier, mean2d_offset,
-        alive, capacity, bin_kw)
+        image_size, sh_degree=sh_degree, pose_delta=pose_delta,
+        scale_modifier=scale_modifier)
+    valid = proj.valid if alive is None else proj.valid & alive
+    mean2d = proj.mean2d if mean2d_offset is None else (proj.mean2d
+                                                        + mean2d_offset)
+    bins = bin_gaussians(mean2d.detach(), proj.radius, proj.depth.detach(),
+                         valid, image_size, capacity=capacity, kw=bin_kw)
     tc, td, ta, n_touched, _ = composite(
         bins, mean2d, proj.conic, proj.color, proj.opacity, proj.depth,
         image_size, bg, chunk=chunk)
@@ -94,19 +77,21 @@ def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
                  capacity=512, chunk=64, scale_modifier=1.0,
                  mean2d_offset=None, alive=None, bin_kw=4) -> RenderOutput:
     """The mapping hot path, counterpart of ``render_pallas``: one packed
-    (N, 16) attribute table gathered into per-tile tables by K3 (backward
-    K4), composited by K1/K2 on a CUDA tensor (the plain versions on the
-    CPU).
+    (N, 16) attribute table, projected by P1 (backward P2; SH degree 0 only)
+    and gathered into per-tile tables by K3 (backward K4), composited by
+    K1/K2 on a CUDA tensor (the plain versions on the CPU).
     Gives no ``n_touched`` (zeros); use ``render`` for covisibility."""
     if bg is None:
         bg = torch.zeros(3, dtype=means3d.dtype, device=means3d.device)
-    proj, valid, mean2d, bins = _project_and_bin(
+    rows = project_rows(
         means3d, scales, rotations, opacities, sh_coeffs, w2c, intrinsics,
-        image_size, sh_degree, pose_delta, scale_modifier, mean2d_offset,
-        alive, capacity, bin_kw)
-    attrs = pack_attrs(mean2d, proj)
+        image_size, sh_degree=sh_degree, pose_delta=pose_delta,
+        scale_modifier=scale_modifier, mean2d_offset=mean2d_offset,
+        alive=alive)
+    bins = bin_gaussians(rows.mean2d, rows.radius, rows.depth, rows.valid,
+                         image_size, capacity=capacity, kw=bin_kw)
     tiles = composite_cuda.composite_tiles(
-        bins.counts, gather_table(attrs, bins.ids), bg,
+        bins.counts, gather_table(rows.attrs, bins.ids), bg,
         num_tiles(image_size)[1], chunk)
     color, depth, alpha, _ = tiles
     return RenderOutput(
@@ -114,8 +99,7 @@ def render_fused(means3d, scales, rotations, opacities, sh_coeffs, w2c,
         alpha=untile(alpha, image_size),
         n_touched=torch.zeros(means3d.shape[0], dtype=torch.int32,
                               device=means3d.device),
-        radii=torch.where(valid, proj.radius, torch.zeros_like(proj.radius)),
-        overflow=bins.overflow, tile_counts=bins.counts)
+        radii=rows.radius, overflow=bins.overflow, tile_counts=bins.counts)
 
 
 def render_reference(means3d, scales, rotations, opacities, sh_coeffs, w2c,

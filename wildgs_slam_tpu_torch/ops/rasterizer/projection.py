@@ -18,6 +18,9 @@ from .. import lie
 from .. import sh as sh_utils
 
 
+ATTR_F = 16  # floats in a packed row: K3's row, K1/K2's table lane count
+
+
 class ProjectedGaussians(NamedTuple):
     mean2d: torch.Tensor   # (N, 2) pixel coords
     depth: torch.Tensor    # (N,) camera-space z
@@ -111,3 +114,14 @@ def project_gaussians(means3d, scales, rotations, opacities, sh_coeffs, w2c,
     return ProjectedGaussians(mean2d=mean2d, depth=tz, conic=conic,
                               color=color, opacity=opacities, radius=radius,
                               valid=valid)
+
+
+def pack_attrs(mean2d: torch.Tensor, proj: ProjectedGaussians):
+    """The (N, 16) rows K3 gathers: mean, conic, colour, opacity, depth and
+    6 zero lanes."""
+    zc = torch.zeros_like(proj.depth)
+    return torch.stack(
+        [mean2d[:, 0], mean2d[:, 1], proj.conic[:, 0], proj.conic[:, 1],
+         proj.conic[:, 2], proj.color[:, 0], proj.color[:, 1],
+         proj.color[:, 2], proj.opacity, proj.depth]
+        + [zc] * (ATTR_F - 10), dim=1)

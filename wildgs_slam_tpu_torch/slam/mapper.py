@@ -34,7 +34,8 @@ GUI (``gui/file_gui.py``): a forward render of the keyframe, its
 uncertainty, the keyframe trajectory and a host copy of the map.
 
 Counters: ``fused_renders`` counts the renders through ``render_fused``
-(each one K3 -> K1, and K2 -> K4 in its backward), ``gui_renders`` those of
+(each one P1 -> K3 -> K1, and K2 -> K4 -> P2 in its backward; ``TIMER``'s
+``map.proj.kernel`` counts those that took P1/P2), ``gui_renders`` those of
 them without a backward (the GUI's), ``refine_calls`` the refined frames
 and ``refine_steps`` their steps, each of which reads |delta| back to the
 host once; ``fills`` the depth fills, ``invalid_keyframes`` the keyframes
