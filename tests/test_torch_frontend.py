@@ -279,10 +279,16 @@ def _factor_graph_lifecycle(cfg, nets):
     close(ts.store.disps, js.store.disps)
 
 
-def test_update_bf16_volumes(cfg, nets):
-    """The production storage: bfloat16 volumes in both packages."""
+@pytest.mark.parametrize("flags", [(True, True), (False, False)],
+                         ids=["flags_on", "flags_off"])
+def test_update_bf16_volumes(cfg, nets, flags):
+    """The production storage: bfloat16 volumes in both packages, with
+    ``(metric_depth_reg, uncertainty_aware)`` both on (the sensor term and
+    the uncertainty weights in the BA) and both off."""
     params, model = nets
     js, ts = track_both(cfg, nets, 6, thresh=-1.0)
+    for s in (js, ts):
+        s.metric_depth_reg, s.uncertainty_aware = flags
     jg = JGraph(js, params, max_factors=48, pmax=16)
     tg = TGraph(ts, model, max_factors=48)
     for g in (jg, tg):

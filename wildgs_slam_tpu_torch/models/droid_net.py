@@ -255,6 +255,12 @@ def context_split(context):
     return torch.tanh(net), F.relu(inp)
 
 
+def motion_features(coords0, coords1, target):
+    """The update operator's motion input (E, h, w, 4): flow and residual."""
+    return torch.clamp(torch.cat([coords1 - coords0, target - coords1], -1),
+                       -64.0, 64.0)
+
+
 def cvx_upsample(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """data (B, H, W, D), mask (B, H, W, 576) -> (B, 8H, 8W, D)."""
     B, H, W, D = data.shape

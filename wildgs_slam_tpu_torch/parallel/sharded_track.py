@@ -5,13 +5,15 @@ One ``FactorGraph.update_n`` iteration (reproject, correlation lookup,
 update operator, BA, convex upsample) with the edges sharded by source
 frame, as ``sharded_dba`` places them:
 
-  * reprojection, the lookup and the update operator are per edge and run
-    on each shard's active edges with no communication;
+  * reprojection, the motion features (``droid_net.motion_features``, as
+    the single-device graph), the lookup and the update operator are per
+    edge and run on each shard's active edges with no communication;
   * the update operator's per-frame aggregation (damping, upsampling mask)
     stays local, since every edge of a source frame lives on the frame's
     owner;
   * the BA's pose system is one psum per Gauss-Newton iteration
-    (``sharded_dba.ba_step``);
+    (``sharded_dba.ba_step``), not ``keyframe_store.ba``: the padded
+    rows' source frames are clamped into the buffer before the weighting;
   * the damping and upsampled disparities of each shard's frames are
     combined by a psum of their changes (a delta-psum).
 
@@ -82,9 +84,8 @@ def make_sharded_track_step(mesh, F: int, hw_shape, pmax: int,
                 coords0 = projective.coords_grid(h, w, device=dev)
                 coords1, _ = projective.projective_transform(
                     P[d], Dp[d], I[d], ii_a, jj_a)
-                motn = torch.clamp(torch.cat(
-                    [coords1 - coords0, target[d][act] - coords1], dim=-1),
-                    -64.0, 64.0)
+                motn = droid_net.motion_features(coords0, coords1,
+                                                 target[d][act])
                 cor = correlation.corr_lookup_packed(corr[d], coords1)
                 net_a, delta, w_a, frames, eta, upmask = model_on(
                     model, dev).update(net[d][act], inp[d][act], cor, motn,

@@ -16,11 +16,18 @@ graph's ``_update_n_sharded``: always ``n`` iterations, no early exit and no
 ``motion_only``, a NaN mean delta; the oracle branch comes first and
 ``update_lowmem`` stays on one device.
 
+Every single-device path of the graph update meets the store at one seam:
+``droid_net.motion_features`` builds the update operator's motion input,
+``keyframe_store.reproject`` and ``.upsample`` the geometry, and every BA
+is ``keyframe_store.ba`` (the uncertainty weights and the metric-depth
+prior, then one ``dba.ba``). The paths differ only in the correlation
+lookup and in how they write the new edge state back.
+
 ``update_n`` runs the JAX ``_update_core`` semantics as a Python loop: per
-iteration reproject, clamp the motion features to ±64, look up the
-correlation, run the update operator, write the damping of the edges'
-source frames, then uncertainty-weighted BA over the active and the
-selected inactive edges (the Schur terms of each source frame's first
+iteration reproject, build the motion features, look up the correlation,
+run the update operator, write the damping of the edges' source frames,
+then one ``keyframe_store.ba`` over the active and the selected inactive
+edges, in that order (the Schur terms of each source frame's first
 ``GROUP_DEGREE`` edges only, as the JAX group table); stop early once the
 mean |delta| is at most ``eps``; finally one convex upsample with the last
 iteration's mask. With ``gt_injection`` set, the update operator is swapped
@@ -32,9 +39,9 @@ A graph built with ``corr_impl="alt"`` (the backend's) stores no volumes:
 (``correlation.alt_corr``). Per step it builds the feature pyramid, runs
 the update operator over the edges in chunks of 8 source frames (in
 ascending order, each against the same poses), writes back their GRU
-states, targets, weights and damping rows, then solves one full-window BA
-(lm 1e-5, ep 1e-2). The backend's graphs are seeded by
-``add_backend_proximity_factors`` and, for loop closure, by
+states, targets, weights and damping rows, then solves one full-window
+``keyframe_store.ba`` (lm 1e-5, ep 1e-2). The backend's graphs are seeded
+by ``add_backend_proximity_factors`` and, for loop closure, by
 ``adopt_edges`` from the frontend's graph.
 """
 
@@ -191,14 +198,6 @@ class FactorGraph:
                                       self.age[keep])
         self._keep_rows(keep)
 
-    def filter_edges(self):
-        """Remove low-confidence long-range edges."""
-        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
-        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
-        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
-        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
-        self.rm_factors(mask, store=False)
-
     @torch.no_grad()
     def rm_keyframe(self, ix: int):
         """Shift the store over keyframe ix and renumber the edges; edges
@@ -244,15 +243,6 @@ class FactorGraph:
         jj_all = _t(np.concatenate([self.jj, self.jj_inac[m]]), self.device)
         return t0, t1, sel, ii_all, jj_all, groups
 
-    def _ba_kwargs(self):
-        st = self.state
-        kw = dict(sensor_disps=None, sensor_valid=None)
-        if st.metric_depth_reg:
-            sh, sw = kstore.slice_hw(*st.store.mono_disps_up.shape[-2:])
-            kw = dict(sensor_disps=st.store.mono_disps,
-                      sensor_valid=st.store.mono_mask_up[:, sh, sw])
-        return kw
-
     def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
                motion_only=False):
         return self.update_n(1, t0=t0, t1=t1, itrs=itrs,
@@ -269,7 +259,8 @@ class FactorGraph:
         ``track.update_iters`` and ``track.edges`` (its active edges) and
         runs three device-marked spans: ``track.upd.corr`` (reprojection,
         motion features, correlation lookup), ``track.upd.operator`` (the
-        update operator) and ``track.upd.ba`` (the BA and its copies)."""
+        update operator and its writes) and ``track.upd.ba`` (one
+        ``keyframe_store.ba`` over the active, then the inactive edges)."""
         if self.E == 0:
             return None
         if self.gt_injection is not None:
@@ -284,20 +275,15 @@ class FactorGraph:
         ii_t, jj_t = ii_all[:self.E], jj_all[:self.E]
         itgt, iwgt = self.target_inac[sel], self.weight_inac[sel]
         coords0 = projective.coords_grid(self.h, self.w, device=self.device)
-        uw = (store.uncertainties_inv[ii_all][..., None]
-              if st.uncertainty_aware else None)
-        ba_kw = self._ba_kwargs()
         corr_vol = self.corr[:self.E]
         n_done, dmean = 0, torch.zeros((), device=self.device)
         for _ in range(n):
             TIMER.count("track.update_iters")
             TIMER.count("track.edges", self.E)
             with TIMER.phase("track.upd.corr", device=self.device):
-                coords1, _ = projective.projective_transform(
-                    store.poses, store.disps, store.intrinsics, ii_t, jj_t)
-                motn = torch.clamp(torch.cat([coords1 - coords0,
-                                              self.target - coords1], dim=-1),
-                                   -64.0, 64.0)
+                coords1, _ = kstore.reproject(store, ii_t, jj_t)
+                motn = droid_net.motion_features(coords0, coords1,
+                                                 self.target)
                 corr = correlation.corr_lookup_packed(corr_vol, coords1)
             with TIMER.phase("track.upd.operator", device=self.device):
                 net, delta, weight, frames, eta, upmask = self.model.update(
@@ -307,21 +293,17 @@ class FactorGraph:
                 dmean = torch.linalg.norm(delta, dim=-1).mean()
                 self.damping[frames] = eta
             with TIMER.phase("track.upd.ba", device=self.device):
-                weight_all = torch.cat([weight, iwgt])
-                poses, disps = dba.ba(
-                    store.poses, store.disps, store.intrinsics,
-                    torch.cat([self.target, itgt]),
-                    weight_all * uw if uw is not None else weight_all,
-                    0.2 * self.damping + EP_DAMP, ii_all, jj_all, groups, t0,
-                    t1, iters=itrs, cfg=dba.BAConfig(lm=1e-4, ep=0.1),
-                    motion_only=motion_only, **ba_kw)
-                store.poses.copy_(poses)
-                store.disps.copy_(disps)
+                kstore.ba(store, torch.cat([self.target, itgt]),
+                          torch.cat([weight, iwgt]),
+                          0.2 * self.damping + EP_DAMP, ii_all, jj_all, groups,
+                          t0, t1, iters=itrs, lm=1e-4, ep=0.1,
+                          motion_only=motion_only,
+                          metric_depth_reg=st.metric_depth_reg,
+                          uncertainty_aware=st.uncertainty_aware)
             n_done += 1
             if eps > 0 and float(dmean) <= eps:
                 break
-        store.disps_up[frames] = droid_net.upsample_disp(store.disps[frames],
-                                                         upmask)
+        kstore.upsample(store, frames, upmask)
         self.age += n      # by the steps requested, as the JAX graph
         return n_done, dmean
 
@@ -449,7 +431,8 @@ class FactorGraph:
     @torch.no_grad()
     def update_lowmem(self, t0=None, t1=None, itrs=2, steps=8):
         """`steps` global-BA steps with on-the-fly correlation over the pose
-        window [t0, t1) (default [1, last frame of an edge])."""
+        window [t0, t1) (default [1, last frame of an edge]), each the update
+        operator per chunk (``alt_corr``), then one ``keyframe_store.ba``."""
         if self.E == 0:
             return
         st = self.state
@@ -494,11 +477,9 @@ class FactorGraph:
         fpyr = correlation.fmap_pyramid(store.fmaps[:n_frames])
         for sel in chunks:
             iic, jjc = ii_t[sel], jj_t[sel]
-            coords1, _ = projective.projective_transform(
-                store.poses, store.disps, store.intrinsics, iic, jjc)
-            motn = torch.clamp(torch.cat([coords1 - coords0,
-                                          self.target[sel] - coords1],
-                                         dim=-1), -64.0, 64.0)
+            coords1, _ = kstore.reproject(store, iic, jjc)
+            motn = droid_net.motion_features(coords0, coords1,
+                                             self.target[sel])
             corr = correlation.alt_corr(fpyr, coords1, iic, jjc)
             net, delta, weight, frames, eta, _ = self.model.update(
                 self.net[sel], store.inps[iic], corr, motn, iic)
