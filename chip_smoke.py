@@ -31,7 +31,13 @@ Phases, each printing its own lines:
      (project_fwd/project_bwd, the render's projection) on phase 3's
      scene against the plain projection and its autograd backward, and
      timed beside that chain: device ms and operations per call, and the
-     bound by bytes;
+     bound by bytes. Then M1/M2 (mapping_loss_fwd/mapping_loss_bwd, the
+     uncertainty-aware mapping loss) at both mapping cells' shapes
+     (384x512 on 27x36, 360x640 on 25x45) against the plain loss and its
+     autograd backward (total rel 1e-5, gradients max-rel 1e-5), each timed
+     per call beside its bound (the loss's fp32 operations a pixel of
+     h100_bench/counts/mapping_step.py at 67 TFLOP/s, against its bytes)
+     and the plain chain's device time and operations;
   5. the mapper's keyframe path through Mapper's entry points
      (initialize_mapper, then on_keyframe; 100 iterations per keyframe
      after the init's 1,050, the config's 450 cut) at the full
@@ -179,7 +185,11 @@ K2 (once per render_fused call, P2 only with a backward); where TIMER was
 reset with the launch counters (phases 5, 7, 8, 9 and 10), its
 map.proj.kernel must equal P1's launches; the sharded render of phase 11
 (a) projects with the plain projection and launches neither. Phase 14's
-JSON line gives P1/P2's launches by path under "projection".
+JSON line gives P1/P2's launches by path under "projection", and M1/M2's
+rows under "mapping_loss". Where map.proj.kernel is gated, TIMER's
+map.loss.kernel must equal the mapping steps (its map.step spans) of an
+uncertainty-aware mapper, and 0 otherwise, and M1's and M2's launches
+must equal it.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result. It finds the port package next to itself,
@@ -251,6 +261,11 @@ try:
         projection_cuda as pc)
 except ImportError:     # --kernels-from a commit before the projection's
     pc = None           # kernels
+try:
+    from wildgs_slam_tpu_torch.slam import losses  # noqa: E402
+    from wildgs_slam_tpu_torch.slam import losses_cuda as lc  # noqa: E402
+except ImportError:     # --kernels-from a commit before the mapping loss's
+    lc = None           # kernels
 
 CONFIG = os.path.join(HERE, "configs", "Dynamic", "TUM_RGBD",
                       "tum_dynamic.yaml")
@@ -282,6 +297,21 @@ PROJ_MAX_REL = 1e-6      # P1: each packed column against the plain
 PROJ_FWD_BYTES = 65 + 81
 PROJ_BWD_VALID_BYTES = 1 + 100 + 64
 PROJ_BWD_OTHER_BYTES = 1 + 64
+# M1/M2 (csrc/mapping_loss.cu): fp32 operations a pixel, as
+# h100_bench/counts/mapping_step.py counts the loss (2,016 in all): the
+# forward's two SSIMs, exposure, L1, masks, weights and depth terms, and the
+# backward through the standard SSIM's three maps and the L1 and depth terms
+LOSS_FWD_OPS = 660 + 60 + 420 + 90 + 80
+LOSS_BWD_OPS = 396 + 120 + 90
+# bytes a pixel, each read or written once: M1 reads the render's colour and
+# the image (12 each), depth, reference depth and opacity (4 each), writes
+# l1_rgb (12), l1_depth and weights_pix (4 each) and the nine SSIM gradient
+# coefficients (36); M2 reads colour, image, depth, reference depth, weights
+# and the coefficients, and writes the colour's and depth's gradients
+LOSS_FWD_BYTES = 36 + 56
+LOSS_BWD_BYTES = 72 + 16
+LOSS_SHAPES = ((384, 512, 27, 36, 0.8), (360, 640, 25, 45, 0.5))
+LOSS_MAX_REL = 1e-5
 KERNELS = {   # wrapper name -> the wrapper, whose .launches counts
     "composite_fwd": cc.composite_fwd, "composite_bwd": cc.composite_bwd,
     "table_gather": tg.table_gather, "table_scatter_add": tg.table_scatter_add}
@@ -415,6 +445,8 @@ def count_update_calls():
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+    if lc is not None:
+        lc.mapping_loss_fwd.launches = lc.mapping_loss_bwd.launches = 0
     cn.conv_nhwc.launches = UPDATE_CALLS[0] = CONV_READ[0] = 0
 
 
@@ -652,7 +684,8 @@ def kernel_phase(dev):
     rows = kernel_rows(dev, counts, table, tw, attrs, ids,
                        overflow_check=not KERNELS_FROM)
     proj = projection_rows(dev) if pc is not None else []
-    return rows, (conv_rows(dev) if cn is not None else []), proj
+    loss = mapping_loss_rows(dev) if lc is not None else []
+    return rows, (conv_rows(dev) if cn is not None else []), proj, loss
 
 
 def device_ops(fn, reps=20):
@@ -755,6 +788,117 @@ def projection_rows(dev, h=384, w=512):
             max_abs_err=err, ms=ms, ops=ops, b2b_ms=b2b, plain_ms=plain_ms,
             plain_ops=plain_ops, plain_b2b_ms=plain_b2b, bound_ms=b,
             bound_by=by))
+    return rows
+
+
+LOSS_CFG = {"rgb_boundary_threshold": 0.01, "ssim_loss": True,
+            "lambda_dssim": 0.2, "uncertainty_params": {
+                "ssim_window_size": 7, "ssim_median_filter_size": 5,
+                "opacity_th_for_uncer_loss": 0.9, "ssim_mult": 0.5,
+                "uncer_depth_mult": 0.2}}   # both mapping cells'
+
+
+def loss_inputs(H, W, h, w, dev, seed=0):
+    """A render and its image (black corner under the RGB threshold), depth
+    and reference depth (holes, a block past the depth threshold), opacity
+    whose DINO-grid average straddles 0.9, sigma partly under 0.1, the
+    exposure, the reference depth's median."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    img = np.clip(0.5 + 0.3 * np.sin(0.05 * xx + 0.03 * yy)[..., None]
+                  + 0.2 * rng.uniform(-1, 1, (H, W, 3)), 0, 1)
+    gt = np.clip(img + 0.1 * rng.normal(size=img.shape), 0, 1)
+    gt[:8, :40] = 0.0
+    depth = 2.0 + 0.5 * np.sin(0.01 * xx) + 0.3 * rng.uniform(size=(H, W))
+    ref = depth + 0.6 * rng.normal(size=(H, W))
+    ref[:6] = 0.0
+    ref[-40:, -70:] = 60.0
+    opac = np.clip(0.9 + 0.08 * np.sin(2 * np.pi * 3 * xx / W)
+                   + 0.05 * rng.uniform(-1, 1, (H, W)), 0, 1)
+    sigma = 0.03 + 2.0 * rng.uniform(size=(h, w))
+    ref_t = t32(ref, dev)
+    return (t32(img, dev), t32(depth, dev), t32(gt, dev), ref_t,
+            t32(sigma, dev), t32(opac, dev), t32([0.05, -0.02], dev),
+            losses.ssim_ops.median(ref_t))
+
+
+def mapping_loss_rows(dev):
+    """M1/M2 at both mapping cells' shapes: the loss through the kernels
+    (losses.mapping_loss_uncertainty on the card) against the plain loss
+    (total rel, gradients of colour, depth, sigma and exposure max-rel),
+    then each kernel's wrapper timed beside its bound and the plain chain it
+    replaces (the plain loss forward; its autograd backward): device ms
+    and device operations per call (torch.profiler, 20 calls) and the
+    median of CUDA-event rounds of back-to-back calls (for the plain chain
+    the host's launch rate)."""
+    rows = []
+    for H, W, h, w, alpha in LOSS_SHAPES:
+        x = loss_inputs(H, W, h, w, dev)
+        img, depth, gt, ref, sigma, opac, exp, med = x
+        cfg = dict(LOSS_CFG, alpha=alpha)
+
+        def run(fn):
+            leaves = [v.clone().requires_grad_(True)
+                      for v in (img, depth, sigma, exp)]
+            lo = fn(leaves[0], leaves[1], gt, ref, leaves[2], opac,
+                    leaves[3][0], leaves[3][1], 0.3, 0.3, cfg,
+                    ref_depth_median=med)
+            grads = torch.autograd.grad(lo.total, leaves)
+            return lo, grads, leaves
+        k, kg, _ = run(losses.mapping_loss_uncertainty)
+        p, pg, leaves = run(losses.mapping_loss_uncertainty_plain)
+        kt, pt = float(k.total.detach()), float(p.total.detach())
+        rel = abs(kt - pt) / abs(pt)
+        grel = {n: float((a - b).abs().max() / b.abs().max())
+                for n, a, b in zip(("img", "depth", "sigma", "exposure"), kg,
+                                   pg)}
+        print(f"M1/M2 at {H}x{W} on {h}x{w} vs the plain loss: total "
+              f"{kt:.7f} / {pt:.7f} (rel "
+              f"{rel:.2e}); gradients max-rel {json.dumps(grel)}")
+        if not (rel < LOSS_MAX_REL and max(grel.values()) < LOSS_MAX_REL):
+            raise AssertionError(f"M1/M2 at {H}x{W}: rel {rel}, {grel}")
+
+        params = losses.uncertainty_loss_params(cfg, 0.3, 0.3)
+        fwd_args = (img, depth, gt, ref, sigma, opac, exp[0], exp[1], med,
+                    params)
+        out = lc.mapping_loss_fwd(*fwd_args)
+        g_total = torch.ones((), device=dev)
+        bwd_args = (img, depth, gt, ref, exp[0], exp[1], med, out[2], out[5],
+                    out[6], out[7], g_total, None, params)
+
+        def plain_fwd():
+            return losses.mapping_loss_uncertainty_plain(
+                leaves[0], leaves[1], gt, ref, leaves[2], opac, leaves[3][0],
+                leaves[3][1], 0.3, 0.3, cfg, ref_depth_median=med)
+        plain = plain_fwd()
+
+        def plain_bwd():
+            return torch.autograd.grad(plain.total, leaves, retain_graph=True)
+        for name, fn, plain_fn, ops, nbytes, err in (
+                ("mapping_loss_fwd", lambda: lc.mapping_loss_fwd(*fwd_args),
+                 plain_fwd, LOSS_FWD_OPS, LOSS_FWD_BYTES, rel),
+                ("mapping_loss_bwd", lambda: lc.mapping_loss_bwd(*bwd_args),
+                 plain_bwd, LOSS_BWD_OPS, LOSS_BWD_BYTES,
+                 max(grel.values()))):
+            ms, n_ops = device_ops(fn)
+            plain_ms, plain_ops = device_ops(plain_fn)
+            b2b = time_ms(fn, 50, rounds=5)
+            plain_b2b = time_ms(plain_fn, 10, warmup=2, rounds=5)
+            b, by, t_ops, t_bytes = bound(ops * H * W, nbytes * H * W)
+            print(f"{name} {H}x{W}: device {ms:.4f} ms, {n_ops:.0f} "
+                  f"operations per call (torch.profiler, 20 calls); back to "
+                  f"back {b2b:.4f} ms; plain chain: device {plain_ms:.4f} ms, "
+                  f"{plain_ops:.0f} operations, back to back "
+                  f"{plain_b2b:.4f} ms; bound {b:.4f} ms by {by} "
+                  f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); "
+                  f"{b / ms * 100:.1f}% of bound")
+            rows.append(dict(
+                name=name, shape=[H, W, h, w], route="cuda",
+                source="wildgs_slam_tpu_torch/csrc/mapping_loss.cu",
+                replaces="wildgs_slam_tpu_torch/slam/losses.py",
+                max_rel_err=err, ms=ms, ops=n_ops, b2b_ms=b2b,
+                plain_ms=plain_ms, plain_ops=plain_ops,
+                plain_b2b_ms=plain_b2b, bound_ms=b, bound_by=by))
     return rows
 
 
@@ -1230,6 +1374,7 @@ def slice_phase(dev):
     torch.cuda.synchronize()
     t_online = time.perf_counter() - t1
     launches, n_proj = read_launches(), proj_count()
+    loss_gate("slice", mapper)
     steps = len(mapper.step_losses)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1689,6 +1834,7 @@ def system_phase(dev):
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches, n_proj = read_launches(), proj_count()
+    loss_gate("system", mapper)
     renders = mapper.fused_renders
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t_loop = marks["loop_end"] - t0
@@ -1988,6 +2134,7 @@ def run_entry(argv, label, cfg, dev, priors=True, n_frames=ENTRY_FRAMES,
                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                stats={k: (v.count, v.total, v.first, v.warm_mean)
                       for k, v in TIMER.stats.items()})
+    loss_gate(label, slam.mapper)
     st = rec["stats"]
     n = st["data.load"][0]
     loop = rec["t_loop"] - st.get("checkpoint.load", (0, 0.0))[1]
@@ -2031,6 +2178,25 @@ def proj_count():
         return None
     c = TIMER.counters.get("map.proj.kernel")
     return 0 if c is None else c.total()
+
+
+def loss_gate(label, mapper):
+    """M1/M2 once per mapping step (TIMER's map.step spans since a
+    TIMER.reset() made with reset_launches()) of an uncertainty-aware
+    mapper, none otherwise; map.loss.kernel counts them."""
+    if lc is None:
+        return
+    c = TIMER.counters.get("map.loss.kernel")
+    n = 0 if c is None else c.total()
+    s = TIMER.stats.get("map.step")
+    steps = 0 if s is None else s.count
+    want = steps if mapper.uncertainty_aware else 0
+    fwd, bwd = lc.mapping_loss_fwd.launches, lc.mapping_loss_bwd.launches
+    print(f"{label}: map.loss.kernel {n}, mapping steps {steps}, M1/M2 "
+          f"launches {fwd}/{bwd}")
+    if not n == want == fwd == bwd:
+        raise AssertionError(f"{label}: map.loss.kernel {n}, M1/M2 {fwd}/"
+                             f"{bwd}, want {want}")
 
 
 def proj_counter_gate(label, n, want):
@@ -2359,6 +2525,7 @@ def splat_slam_phase(dev, ckpt):
     t_run = time.perf_counter() - t0
     launches, n_proj = read_launches(), proj_count()
     m = slam.mapper
+    loss_gate("splat-slam", m)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     st = TIMER.stats
     fl, rs = st.get("map.depth_fill"), st.get("map.kf_resync_deform")
@@ -3658,10 +3825,12 @@ def main():
     t_phase = time.perf_counter()
     if cn is not None:
         count_update_calls()
-    rows, conv, proj = kernel_phase(dev)
+    rows, conv, proj, loss = kernel_phase(dev)
     if KERNELS_FROM:
         print(json.dumps({"kernels_from": KERNELS_FROM, "ms": {
-            r["name"]: r["ms"] for r in rows + conv + proj}}))
+            r["name"]: r["ms"] for r in rows + conv + proj}, "mapping_loss": {
+            f"{r['name']} {r['shape'][0]}x{r['shape'][1]}": r["ms"]
+            for r in loss}}))
         return
     small_render_check(dev)
     t_phase = phase_seconds("3-4", t_phase)
@@ -3736,7 +3905,7 @@ def main():
     print(json.dumps({"kernels": rows, "conv_nhwc": {
         "launches_per_update": len(CONV_LAUNCHES),
         "launches_by_phase": CONV_TALLY, "per_launch": conv},
-        "projection": proj}))
+        "projection": proj, "mapping_loss": loss}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,18 @@ largest entry; P2's gradients within max-relative 1e-5 of autograd's (the
 K2 tolerance), exactly 0 on rows that are not valid, and the camera's
 gradient (float64 block sums in a fixed order) bit-equal between two runs.
 
+M1/M2 (the uncertainty-aware mapping loss, csrc/mapping_loss.cu) at both
+cells' shapes (384x512 on the 27x36 DINO grid, 360x640 on 25x45), with and
+without `initialization`, on inputs with reference-depth holes and values
+past the depth threshold, opacity straddling opacity_th_for_uncer_loss and
+sigma below its 0.1 clamp, against the plain loss
+(`losses.mapping_loss_uncertainty_plain`) on the card: total and
+uncer_loss within rel 1e-5, weights_pix and every gradient (image, depth,
+exposure, sigma) within max-relative 1e-5 of its largest entry. Only the
+order of the sums differs (the blurs' taps, the resamples' weights, the
+means); the weight tables are the plain path's own. Two calls give the
+same bits (fixed-order block sums, no atomics).
+
 conv_nhwc (the update operator's convolutions) at E = 1, 8 and 64 edges,
 at 48 x 64 and 45 x 80 (a ragged M, and the Wild-SLAM MoCap grid), for
 each launch the operator makes (1x1 over 196 and 7x7 over 4 channels, not
@@ -62,6 +74,8 @@ from wildgs_slam_tpu_torch.ops import rasterizer as tr
 from wildgs_slam_tpu_torch.ops.rasterizer import composite_cuda as cc
 from wildgs_slam_tpu_torch.ops.rasterizer import projection_cuda as pc
 from wildgs_slam_tpu_torch.ops.rasterizer import table_gather as tg
+from wildgs_slam_tpu_torch.slam import losses
+from wildgs_slam_tpu_torch.slam import losses_cuda as lc
 from wildgs_slam_tpu_torch.utils.profiling import TIMER
 
 pytestmark = pytest.mark.gpu
@@ -770,6 +784,133 @@ def test_project_kernels_check_inputs():
     with pytest.raises(ValueError):
         pc.project_bwd(gauss[0], gauss[1], gauss[2], gauss[4], rows.valid,
                        w2c, intr, (48, 64), torch.zeros(64, 10, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the mapping loss, M1/M2
+# ---------------------------------------------------------------------------
+
+LOSS_SHAPES = [(384, 512, 27, 36), (360, 640, 25, 45)]
+LOSS_MAX_REL = 1e-5
+
+
+def loss_cfg(alpha):
+    """The loss's settings in tum_dynamic.yaml (alpha 0.8) and
+    wild_slam_mocap.yaml (0.5)."""
+    return {"alpha": alpha, "rgb_boundary_threshold": 0.01,
+            "ssim_loss": True, "lambda_dssim": 0.2,
+            "uncertainty_params": {
+                "ssim_window_size": 7, "ssim_median_filter_size": 5,
+                "opacity_th_for_uncer_loss": 0.9, "ssim_mult": 0.5,
+                "uncer_depth_mult": 0.2}}
+
+
+def loss_inputs(H, W, h, w, seed, dev):
+    """(img, depth, gt, ref, sigma, opacity, exposure, median): a render and
+    its target with black pixels under the RGB threshold, reference depth
+    with holes and a block past the depth threshold, opacity whose DINO-grid
+    average straddles 0.9, sigma partly under its 0.1 clamp."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    img = np.clip(0.5 + 0.3 * np.sin(0.05 * xx + 0.03 * yy)[..., None]
+                  + 0.2 * rng.uniform(-1, 1, (H, W, 3)), 0, 1)
+    gt = np.clip(img + 0.1 * rng.normal(size=img.shape), 0, 1)
+    gt[:8, :40] = 0.0
+    depth = 2.0 + 0.5 * np.sin(0.01 * xx) + 0.3 * rng.uniform(size=(H, W))
+    ref = depth + 0.6 * rng.normal(size=(H, W))
+    ref[:6] = 0.0
+    ref[rng.uniform(size=(H, W)) < 0.05] = 0.0
+    ref[-40:, -70:] = 60.0
+    opac = np.clip(0.9 + 0.08 * np.sin(2 * np.pi * 3 * xx / W)
+                   + 0.05 * rng.uniform(-1, 1, (H, W)), 0, 1)
+    sigma = 0.03 + 2.0 * rng.uniform(size=(h, w))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa
+    ref_t = t(ref)
+    return (t(img), t(depth), t(gt), ref_t, t(sigma), t(opac),
+            t([0.05, -0.02]), losses.ssim_ops.median(ref_t))
+
+
+def _loss_run(fn, x, cfg, init):
+    """fn's outputs and the gradients of total + 0.25 sum(uncer_loss) in
+    (img, depth, sigma, exposure)."""
+    img, depth, gt, ref, sigma, opac, exp, med = x
+    leaves = [v.clone().requires_grad_(True) for v in (img, depth, sigma,
+                                                        exp)]
+    lo = fn(leaves[0], leaves[1], gt, ref, leaves[2], opac, leaves[3][0],
+            leaves[3][1], 0.3, 0.3, cfg, initialization=init,
+            ref_depth_median=med)
+    (lo.total + 0.25 * lo.uncer_loss.sum()).backward()
+    torch.cuda.synchronize()
+    return lo, [v.grad for v in leaves]
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("H,W,h,w", LOSS_SHAPES)
+def test_mapping_loss_matches_plain(H, W, h, w, init):
+    _need_card()
+    dev = torch.device("cuda")
+    x = loss_inputs(H, W, h, w, 3, dev)
+    cfg = loss_cfg(0.8 if W == 512 else 0.5)
+    TIMER.reset()
+    fwd, bwd = lc.mapping_loss_fwd.launches, lc.mapping_loss_bwd.launches
+    k, kg = _loss_run(losses.mapping_loss_uncertainty, x, cfg, init)
+    assert lc.mapping_loss_fwd.launches - fwd == 1
+    assert lc.mapping_loss_bwd.launches - bwd == 1
+    assert TIMER.counters["map.loss.kernel"].total() == 1
+    p, pg = _loss_run(losses.mapping_loss_uncertainty_plain, x, cfg, init)
+    # the inputs reach every branch
+    small_op = losses.ssim_ops.resample_bilinear(x[5], (h, w))
+    assert 0 < int((small_op < 0.9).sum()) < h * w
+    assert bool((x[4] < 0.1).any())
+    assert bool((p.uncer_loss == 0).any()) and bool((p.weights_pix == 0).any())
+
+    kt, pt = float(k.total.detach()), float(p.total.detach())
+    assert abs(kt - pt) <= LOSS_MAX_REL * abs(pt)
+    for a, b in ((k.uncer_loss, p.uncer_loss), (k.weights_pix, p.weights_pix),
+                 (k.l1_rgb, p.l1_rgb), (k.l1_depth, p.l1_depth)):
+        assert _max_rel(a.detach(), b.detach()) < LOSS_MAX_REL
+    for name, a, b in zip(("img", "depth", "sigma", "exposure"), kg, pg):
+        if init and name == "exposure":
+            assert a is None and b is None
+            continue
+        assert _max_rel(a, b) < LOSS_MAX_REL, name
+
+    k2, kg2 = _loss_run(losses.mapping_loss_uncertainty, x, cfg, init)
+    assert torch.equal(k.total, k2.total)
+    assert torch.equal(k.uncer_loss, k2.uncer_loss)
+    assert torch.equal(k.weights_pix, k2.weights_pix)
+    for a, b in zip(kg, kg2):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_mapping_loss_kernels_check_inputs():
+    """No fallback: a tensor on another device, of another type or shape,
+    or not contiguous, raises."""
+    _need_card()
+    dev = torch.device("cuda")
+    img, depth, gt, ref, sigma, opac, exp, med = loss_inputs(48, 64, 3, 4, 0,
+                                                             dev)
+    p = lc.LossParams(7, 5, False, True, 0.01, 1.5, 400.0, 0.8, 0.2, 0.5,
+                      0.2, 0.9)
+    args = [img, depth, gt, ref, sigma, opac, exp[0], exp[1], med]
+    bad = {0: img.cpu(), 1: depth.double(), 3: ref[:, :32],
+           2: gt.permute(1, 0, 2).contiguous().permute(1, 0, 2),
+           4: sigma.t().contiguous().t()}
+    for i, v in bad.items():
+        with pytest.raises(ValueError):
+            lc.mapping_loss_fwd(*(v if j == i else a
+                                  for j, a in enumerate(args)), p)
+    out = lc.mapping_loss_fwd(*args, p)
+    _, _, weights, _, _, coef, sums, du = out
+    with pytest.raises(ValueError):
+        lc.mapping_loss_bwd(img, depth, gt, ref, exp[0], exp[1], med, weights,
+                            coef, sums, du, torch.ones((), device=dev,
+                                                       dtype=torch.float64),
+                            None, p)
+    with pytest.raises(ValueError):
+        lc.mapping_loss_bwd(img, depth, gt, ref, exp[0], exp[1], med, weights,
+                            coef, sums, du, torch.ones((), device=dev),
+                            torch.ones(4, 3, device=dev), p)
 
 
 # ---------------------------------------------------------------------------

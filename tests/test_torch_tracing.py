@@ -46,6 +46,7 @@ from wildgs_slam_tpu_torch.models.droid_net import DroidNet
 from wildgs_slam_tpu_torch.models.uncertainty import UncertaintyMLP
 from wildgs_slam_tpu_torch.ops import lie
 from wildgs_slam_tpu_torch.slam import keyframe_store as kstore
+from wildgs_slam_tpu_torch.slam import losses_cuda
 from wildgs_slam_tpu_torch.slam.factor_graph import FactorGraph
 from wildgs_slam_tpu_torch.slam.mapper import Mapper
 from wildgs_slam_tpu_torch.slam.motion_filter import MotionFilter
@@ -403,6 +404,17 @@ def test_mapping_spans_cover_the_step(mapping_ctx):
     assert parts >= 0.9 * t["map.step"]["total_s"]
     assert t["map.live_slots"]["count"] == ctx["iterations"]
     assert units == {3}
+
+
+def test_cpu_mapping_step_takes_the_plain_loss(mapping_ctx):
+    """On the CPU the mapping loss runs as plain tensor code: no call is
+    counted in map.loss.kernel, and the kernels' wrappers count none."""
+    ctx, _ = mapping_ctx
+    t = ctx["timer"]
+    assert t["map.step.loss"]["count"] == ctx["iterations"] >= 8
+    assert "map.loss.kernel" not in t
+    assert losses_cuda.mapping_loss_fwd.launches == 0
+    assert losses_cuda.mapping_loss_bwd.launches == 0
 
 
 def test_intake_metric_reads_the_summary_unchanged(mapping_ctx):

@@ -10,8 +10,9 @@ stream, launches on that stream and returns ``cudaGetLastError()``.
 The wrappers that call the entry points live beside their plain PyTorch
 versions: ``ops/rasterizer/composite_cuda.py`` (K1, K2),
 ``ops/rasterizer/table_gather.py`` (K3, K4),
-``ops/rasterizer/projection_cuda.py`` (P1, P2: the render's projection) and
-``ops/conv_nhwc.py`` (the update operator's convolutions).
+``ops/rasterizer/projection_cuda.py`` (P1, P2: the render's projection),
+``ops/conv_nhwc.py`` (the update operator's convolutions) and
+``slam/losses_cuda.py`` (M1, M2: the uncertainty-aware mapping loss).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ SIGNATURES = {
     "conv_nhwc": [_VP] * 11 + [_CI] * 21 + [_VP],
     "project_fwd": [_VP] * 14 + [_CI] * 4 + [_CF] * 2 + [_VP],
     "project_bwd": [_VP] * 16 + [_CI] * 4 + [_CF] + [_VP],
+    "mapping_loss_fwd": [_VP] * 33 + [_CI] * 14 + [_CF] * 9 + [_VP],
+    "mapping_loss_bwd": [_VP] * 19 + [_CI] * 6 + [_CF] * 5 + [_VP],
 }
 
 
@@ -138,3 +141,8 @@ def stream(device):
 
 def ptr(x):
     return ctypes.c_void_p(x.data_ptr())
+
+
+def opt_ptr(x):
+    """ptr(x), or a null pointer for None."""
+    return None if x is None else ptr(x)

@@ -36,7 +36,8 @@ from typing import NamedTuple
 import torch
 
 from ... import kernels
-from ...kernels import check as _check, ptr as _ptr, stream as _stream
+from ...kernels import check as _check, opt_ptr as _opt_ptr, ptr as _ptr
+from ...kernels import stream as _stream
 from ...utils.profiling import TIMER
 from .. import lie
 from .projection import ATTR_F, pack_attrs, project_gaussians
@@ -176,10 +177,6 @@ def project_bwd(means3d, scales, rotations, sh_coeffs, valid, w2c,
 
 project_fwd.launches = 0
 project_bwd.launches = 0
-
-
-def _opt_ptr(x):
-    return None if x is None else _ptr(x)
 
 
 class ProjectRows(torch.autograd.Function):

@@ -4,6 +4,11 @@
 Images are (H, W, 3), depths (H, W); uncertainties live on the DINO patch
 grid (H/14, W/14) and are resampled to pixels. ``.detach()`` stands where
 the JAX code has ``stop_gradient``.
+
+``mapping_loss_uncertainty`` on CUDA tensors runs as the hand-written
+kernels of ``losses_cuda.py`` (counted in ``TIMER`` as
+``map.loss.kernel``); on the CPU as ``mapping_loss_uncertainty_plain``,
+which the tests hold against the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import torch.nn.functional as F
 
 from ..ops import ssim as ssim_ops
 from ..utils.precision import float32_convs
+from ..utils.profiling import TIMER
+from . import losses_cuda
 
 DEPTH_MAX_CLIP = 5.0
 EPSILON = ssim_ops.EPSILON
@@ -118,7 +125,26 @@ def mapping_loss_uncertainty(rendered_img, rendered_depth, gt_img, ref_depth,
                              freeze_uncertainty_loss=False,
                              ref_depth_median=None) -> UncertaintyLossOut:
     """Uncertainty-aware mapping loss; uncertainty is the MLP's σ on the
-    DINO grid (h', w')."""
+    DINO grid (h', w'). On CUDA tensors the kernels of ``losses_cuda.py``
+    (``l1_rgb`` and ``l1_depth`` then carry no gradient), counted in
+    ``TIMER`` as ``map.loss.kernel``; on the CPU
+    ``mapping_loss_uncertainty_plain``."""
+    args = (rendered_img, rendered_depth, gt_img, ref_depth, uncertainty,
+            opacity, exposure_a, exposure_b, train_frac, ssim_frac, cfg,
+            initialization, freeze_uncertainty_loss, ref_depth_median)
+    if rendered_img.device.type == "cuda":
+        TIMER.count("map.loss.kernel")
+        return _mapping_loss_uncertainty_cuda(*args)
+    return mapping_loss_uncertainty_plain(*args)
+
+
+def mapping_loss_uncertainty_plain(
+        rendered_img, rendered_depth, gt_img, ref_depth, uncertainty, opacity,
+        exposure_a, exposure_b, train_frac, ssim_frac, cfg,
+        initialization=False, freeze_uncertainty_loss=False,
+        ref_depth_median=None) -> UncertaintyLossOut:
+    """The loss in plain tensor code, on any device: the CPU path, and the
+    kernels' yardstick on the card."""
     up = cfg["uncertainty_params"]
     alpha = cfg.get("alpha", 0.95)
     H, W = gt_img.shape[:2]
@@ -184,6 +210,46 @@ def mapping_loss_uncertainty(rendered_img, rendered_depth, gt_img, ref_depth,
     total = (alpha * rgb_loss.mean() + (1 - alpha) * l1_depth_w.mean()
              + up["ssim_mult"] * uncer_loss.mean())
     return UncertaintyLossOut(total, uncer_loss, weights, l1_rgb, l1_depth)
+
+
+def uncertainty_loss_params(cfg, train_frac, ssim_frac,
+                            initialization=False) -> losses_cuda.LossParams:
+    """The scalars of ``mapping_loss_uncertainty_plain`` for M1/M2, each
+    as the plain code computes it (a Python float, rounded to float32 where
+    it meets a tensor)."""
+    up = cfg["uncertainty_params"]
+    return losses_cuda.LossParams(
+        window=up["ssim_window_size"], median=up["ssim_median_filter_size"],
+        init=bool(initialization), use_ssim=bool(cfg.get("ssim_loss", False)),
+        thr_rgb=cfg["rgb_boundary_threshold"],
+        data_rate=1 + 1 * compute_bias_factor(train_frac, 0.8),
+        ssim_weight=100 + 900 * compute_bias_factor(ssim_frac, 0.8),
+        alpha=cfg.get("alpha", 0.95),
+        lambda_dssim=cfg.get("lambda_dssim", 0.0), ssim_mult=up["ssim_mult"],
+        depth_mult=up["uncer_depth_mult"],
+        opacity_th=up["opacity_th_for_uncer_loss"])
+
+
+def _mapping_loss_uncertainty_cuda(rendered_img, rendered_depth, gt_img,
+                                   ref_depth, uncertainty, opacity,
+                                   exposure_a, exposure_b, train_frac,
+                                   ssim_frac, cfg, initialization,
+                                   freeze_uncertainty_loss, ref_depth_median):
+    """M1/M2 (``losses_cuda.MappingLoss``) on the plain function's
+    arguments."""
+    med = (ssim_ops.median(ref_depth) if ref_depth_median is None
+           else torch.as_tensor(ref_depth_median, dtype=torch.float32,
+                                device=ref_depth.device))
+    params = uncertainty_loss_params(cfg, train_frac, ssim_frac,
+                                     initialization)
+    sigma = uncertainty.detach() if freeze_uncertainty_loss else uncertainty
+    exp_a, exp_b = ((None, None) if initialization
+                    else (exposure_a.contiguous(), exposure_b.contiguous()))
+    return UncertaintyLossOut(*losses_cuda.MappingLoss.apply(
+        rendered_img.contiguous(), rendered_depth.contiguous(),
+        sigma.contiguous(), exp_a, exp_b, gt_img.contiguous(),
+        ref_depth.contiguous(), opacity.detach().contiguous(), med.detach(),
+        params))
 
 
 def dino_regularization_loss(uncertainties, features, top_k=128,
